@@ -1,0 +1,26 @@
+"""Thermal Monte-Carlo campaign engine, PyTorch port of ``repro.campaign``.
+
+  grid    — CampaignGrid axes + SoA packing (fused temperature plane,
+            power-of-two lane buckets)
+  engine  — run_campaign / run_ensemble through the LLG kernel + surface
+            reductions (dense mode, one device)
+  cache   — content-addressed npz result cache of the port
+"""
+from repro_torch.campaign.cache import campaign_key  # noqa: F401
+from repro_torch.campaign.engine import (  # noqa: F401
+    EARLY_EXIT_CHUNK,
+    CampaignResult,
+    EnsembleResult,
+    brown_sigma,
+    run_campaign,
+    run_ensemble,
+)
+from repro_torch.campaign.grid import (  # noqa: F401
+    CampaignGrid,
+    bucket_cells,
+    next_pow2,
+    pack_campaign,
+    pack_plane,
+    pack_soa,
+    tilt_draws,
+)

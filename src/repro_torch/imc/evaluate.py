@@ -1,0 +1,97 @@
+"""System-level evaluation: IMC hierarchy vs CPU baseline (paper Fig. 4).
+
+Port of ``repro.imc.evaluate`` (nominal read path; refresh, faults and
+repair are not ported yet).  Latency: the controller retires row-granular
+ops; logic and write-back pipeline, so the stage time is
+max(logic, write) + 0.1 min(logic, write).  Energy: per-bit device energies
++ per-row-op peripheral energy.
+"""
+from __future__ import annotations
+
+import dataclasses
+import statistics
+from typing import Dict, Optional
+
+from repro_torch.imc.cpu_model import CORTEX_A72, CPUModel
+from repro_torch.imc.hierarchy import IMCHierarchy, build_hierarchy
+from repro_torch.imc.workloads import WORKLOADS, Workload
+
+
+@dataclasses.dataclass(frozen=True)
+class SystemResult:
+    workload: str
+    t_cpu: float
+    e_cpu: float
+    t_imc: float
+    e_imc: float
+    # write-stage provenance: the per-row-op write time the stage model used
+    # and the retry statistics behind it (1.0 / 0.0 for the closed form)
+    t_write_op: float = 0.0
+    write_attempts: float = 1.0
+    write_residual_ber: float = 0.0
+
+    @property
+    def speedup(self) -> float:
+        return self.t_cpu / self.t_imc
+
+    @property
+    def energy_saving(self) -> float:
+        return self.e_cpu / self.e_imc
+
+
+def evaluate_workload(w: Workload, hier: IMCHierarchy,
+                      cpu: CPUModel = CORTEX_A72) -> SystemResult:
+    t_cpu, e_cpu = cpu.kernel_time_energy(
+        w.n_elems, w.cpu_instrs_per_elem, w.cpu_simd_fraction,
+        w.cpu_bytes_per_elem, w.footprint_bytes)
+
+    level = hier.level_for_footprint(w.footprint_bytes)
+    tm = level.timings
+    elems_per_op = level.row_bits / w.bits_per_elem  # row-parallel elements
+
+    n = w.n_elems / elems_per_op                     # row-op batches
+    t_logic = n * (w.logic2 * tm.t_logic2 + w.logic3 * tm.t_logic3
+                   + w.reads * tm.t_read)
+    t_write = n * w.writes * tm.t_write
+    # pipelined execution: logic (sense phase) overlaps write-back
+    t_imc = max(t_logic, t_write) + min(t_logic, t_write) * 0.1
+
+    # op counts are per element; each bit-serial op touches one bit-cell per
+    # element; 3-row majority conducts through three cells
+    e_cells = w.n_elems * (
+        w.logic2 * tm.e_logic_bit
+        + w.logic3 * tm.e_logic3_bit
+        + w.writes * tm.e_write_bit
+        + w.reads * tm.e_read_bit)
+    n_row_ops = n * (w.logic2 + w.logic3 + w.writes + w.reads)
+    e_imc = e_cells + n_row_ops * level.spec.e_periph_row_op
+    return SystemResult(w.name, t_cpu, e_cpu, t_imc, e_imc,
+                        t_write_op=tm.t_write,
+                        write_attempts=tm.write_attempts,
+                        write_residual_ber=tm.write_residual_ber)
+
+
+def evaluate_system(kind: str = "afmtj", v_write: float = 1.0,
+                    wer_target: Optional[float] = None,
+                    write_percentile: Optional[float] = None,
+                    device=None) -> Dict[str, SystemResult]:
+    """Fig. 4 over the paper's six workloads.  ``wer_target`` sizes write
+    pulses from the thermal-tail campaign; ``write_percentile`` (e.g. 99.0)
+    uses the measured write-verify row time at that percentile."""
+    hier = build_hierarchy(kind, v_write=v_write, wer_target=wer_target,
+                           write_percentile=write_percentile, device=device)
+    return {name: evaluate_workload(w, hier) for name, w in WORKLOADS.items()}
+
+
+def summarize(results: Dict[str, SystemResult]):
+    """Arithmetic-mean (speedup, energy_saving) across workloads."""
+    sp = statistics.mean(r.speedup for r in results.values())
+    es = statistics.mean(r.energy_saving for r in results.values())
+    return sp, es
+
+
+def summarize_geomean(results: Dict[str, SystemResult]):
+    """Geometric-mean (speedup, energy_saving) across workloads."""
+    sp = statistics.geometric_mean(r.speedup for r in results.values())
+    es = statistics.geometric_mean(r.energy_saving for r in results.values())
+    return sp, es

@@ -1,0 +1,12 @@
+"""Kernels of the port and their plain PyTorch versions.
+
+  noise    — stateless counter-RNG (lowbias32 + Box-Muller), the uint32
+             stream of ``repro.kernels.noise`` bit for bit
+  ref      — ``ref_llg_rk4``: the plain PyTorch LLG integrator, the
+             kernel's CPU path and its comparison target on the card
+  llg_rk4  — ``llg_rk4_kernel``: wrapper of the CUDA kernel
+             ``csrc/llg_rk4.cu`` (replaces the Pallas ``_llg_kernel`` and
+             ``_llg_thermal_kernel``)
+  ops      — public entry points and the (8, cells) SoA packing helpers
+  build    — nvcc build of ``csrc/*.cu`` into ctypes-loaded libraries
+"""

@@ -1,0 +1,88 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+``csrc/<name>.cu`` is compiled on first use into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared ...
+
+into ``build/repro_torch_kernels/<name>-<hash>.so`` under the repository
+root, keyed by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is not.  The compiler's ``-Xptxas -v`` report
+(registers, spills) is kept beside the library as ``.log``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    cands = [os.path.join(os.environ[k], "bin", "nvcc")
+             for k in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(k)]
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
+                       "built with the CUDA toolkit on the GPU machine")
+
+
+def library_path(name: str) -> Path:
+    """Content-keyed output path of ``csrc/<name>.cu``."""
+    h = hashlib.sha256()
+    for part in (*NVCC_FLAGS, name):
+        h.update(part.encode())
+    for p in sorted(CSRC.glob("*.cu*")):      # .cu and shared .cuh headers
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` unless its library is already built;
+    returns the build's seconds (0.0 when there was nothing to do).
+    Raises with the compiler's output if nvcc fails."""
+    out = library_path(name)
+    if out.exists():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    out.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"CUDA build of {name} failed: nvcc exited "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """nvcc/ptxas output of the current build of ``name`` ('' if none)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, building it if needed."""
+    build(name)
+    return ctypes.CDLL(str(library_path(name)))

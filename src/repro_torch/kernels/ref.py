@@ -1,0 +1,130 @@
+"""Plain PyTorch version of the LLG campaign kernel.
+
+``ref_llg_rk4`` is the port of ``repro.kernels.ref.ref_llg_rk4``: it steps
+the production physics of ``core.llg`` on ``(cells, n_sub, 3)`` tensors,
+one RK4 step per loop iteration.  It is what ``llg_rk4_kernel`` runs for
+CPU tensors, and what ``chip_smoke.py`` holds the CUDA kernel against on
+the card.
+
+Early exit (``chunk > 0``) goes by groups of ``CELL_TILE`` lanes, the
+exit group of the reference's Pallas kernel and of the CUDA kernel (one
+thread block): before every chunk, a group whose lanes have all crossed or
+run out of budget stops updating.  The reference's oracle instead stops
+only when every lane of the whole block is done, so past a finished group
+its rows 0-5 keep moving; row 7 (first crossing) is the same either way,
+and with a single group the two are identical.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import llg, tmr
+from repro_torch.core.integrator import rk4_step
+from repro_torch.core.params import DeviceParams
+from repro_torch.kernels import noise
+
+CELL_TILE = 512       # lanes per early-exit group (one CUDA thread block)
+ROWS = 8
+VAR_ROWS = 3          # variation rows: alpha, B_k [T], g_scale
+
+
+def ref_llg_rk4(
+    state: torch.Tensor,          # (8, cells) f32 SoA (see kernels/llg_rk4.py)
+    p: DeviceParams,
+    dt: float,
+    n_steps: int,
+    switch_threshold: float = 0.9,
+    thermal_sigma=0.0,            # scalar or (cells,) per-lane Brown sigma
+    seeds: torch.Tensor | None = None,   # (cells,) int32 bits of uint32 seeds
+    step_budget=None,             # optional (cells,) f32 per-lane step budget
+    chunk: int = 0,               # >0: early-exit chunk size (steps)
+    lane_params=None,             # optional (3, cells) f32: alpha, B_k, g_scale
+) -> torch.Tensor:
+    """Advance the ``(8, cells)`` block ``n_steps`` RK4 steps; returns the
+    block with rows 0-5 the final state, row 6 the drive and row 7 the
+    first step (1-based, as float32) at which n_z < -threshold, or
+    ``n_steps`` if none.  ``p.n_sublattices`` selects dual- (AFMTJ) or
+    single-sublattice (MTJ) physics; the MTJ keeps rows 3-5 at zero and
+    takes the first triple of each step's six thermal normals."""
+    f32 = torch.float32
+    dev = state.device
+    cells = state.shape[1]
+    n_sub = p.n_sublattices
+    g_scale = None
+    p_lane = p
+    if lane_params is not None:
+        lp = torch.as_tensor(lane_params, dtype=f32, device=dev)
+        assert lp.shape == (VAR_ROWS, cells), (lp.shape, cells)
+        p_lane = dataclasses.replace(p, alpha=lp[0].reshape(cells, 1, 1),
+                                     b_aniso=lp[1].reshape(cells, 1, 1))
+        g_scale = lp[2]
+    if n_sub == 1:
+        m = state[0:3].T[:, None, :]
+    else:
+        m = torch.stack([state[0:3].T, state[3:6].T], dim=1)
+    v = state[6]
+    use_noise = seeds is not None
+    if use_noise:
+        seeds = noise.as_uint32(seeds.reshape(cells))
+        sigma = torch.broadcast_to(
+            torch.as_tensor(thermal_sigma, dtype=f32, device=dev),
+            (cells,)).reshape(cells, 1, 1)
+    else:
+        assert isinstance(thermal_sigma, (int, float)) and thermal_sigma == 0.0, \
+            "thermal path needs per-cell stream seeds"
+    budget = None
+    if step_budget is not None or chunk > 0:
+        budget = (torch.full((cells,), float(n_steps), dtype=f32, device=dev)
+                  if step_budget is None else
+                  torch.broadcast_to(torch.as_tensor(step_budget, dtype=f32,
+                                                     device=dev), (cells,)))
+    aj_scale = llg.const(p.area, state)
+    neg_thr = -switch_threshold
+    never = float(n_steps)
+
+    def step(i: int, m, crossed, frozen):
+        nz = llg.order_parameter_z(m)
+        g = tmr.conductance_from_cos(nz, p)
+        aj = p.stt_prefactor * v * g / aj_scale
+        if g_scale is not None:
+            aj = aj * g_scale
+        if use_noise:
+            d1, d2 = noise.thermal_draws(seeds, i)
+            triples = [torch.stack(d1, dim=-1), torch.stack(d2, dim=-1)]
+            b_th = sigma * torch.stack(triples[:n_sub], dim=1)
+        else:
+            b_th = None
+        m_next = rk4_step(lambda mm, tt: llg.llg_rhs(mm, p_lane, aj, b_th),
+                          m, 0.0, dt)
+        newly = (llg.order_parameter_z(m_next) < neg_thr) & (crossed >= never)
+        if budget is not None:
+            active = float(i) < budget
+            if frozen is not None:
+                active = active & ~frozen
+            newly = newly & active
+            m_next = torch.where(active[:, None, None], m_next, m)
+        crossed = torch.where(newly, torch.full_like(crossed, float(i + 1)),
+                              crossed)
+        return m_next, crossed
+
+    crossed = torch.full((cells,), never, dtype=f32, device=dev)
+    if chunk <= 0:
+        for i in range(int(n_steps)):
+            m, crossed = step(i, m, crossed, None)
+    else:
+        n_chunks = -(-int(n_steps) // int(chunk))
+        n_groups = -(-cells // CELL_TILE)
+        pad = n_groups * CELL_TILE - cells
+        for c in range(n_chunks):
+            done = (crossed < never) | (float(c * chunk) >= budget)
+            group_done = torch.nn.functional.pad(done, (0, pad), value=True)
+            group_done = group_done.reshape(n_groups, CELL_TILE).all(dim=1)
+            if bool(group_done.all()):
+                break
+            frozen = group_done.repeat_interleave(CELL_TILE)[:cells]
+            for j in range(int(chunk)):
+                m, crossed = step(c * chunk + j, m, crossed, frozen)
+    sub2 = m[:, 1, :].T if n_sub == 2 else torch.zeros_like(m[:, 0, :].T)
+    return torch.cat([m[:, 0, :].T, sub2, v[None], crossed[None]], dim=0)

@@ -1,0 +1,122 @@
+"""The port stands alone: no module of ``repro_torch`` (nor
+``chip_smoke.py``) imports JAX or the JAX package, every module imports
+with JAX blocked, and no entry point carries on on the CPU unless asked."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_modules():
+    mods = []
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(ROOT / "src").with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                bad.append(n)
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_every_module_imports_with_jax_blocked():
+    mods = _port_modules()
+    assert len(mods) >= 25, mods
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jax.numpy', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in\n"
+        "               sys.modules.items() if v is not None)\n"
+        "print('NOJAX_OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "NOJAX_OK" in out.stdout
+
+
+def _entry_points():
+    from repro_torch.campaign import CampaignGrid, run_campaign, run_ensemble
+    from repro_torch.circuit.subarray import make_subarray
+    from repro_torch.core.device import simulate_write
+    from repro_torch.core.params import AFMTJ_PARAMS
+    from repro_torch.imc.evaluate import evaluate_system
+    from repro_torch.imc.hierarchy import build_hierarchy
+    from repro_torch.imc.write_margin import wer_margined_pulse
+    from repro_torch.imc.write_path import (WritePolicy,
+                                            measured_write_timings,
+                                            write_verify)
+
+    grid = CampaignGrid(voltages=(1.0,), pulse_widths=(100e-12,), n_samples=4)
+    m0 = torch.zeros(4, 2, 3)
+    return {
+        "run_ensemble": lambda: run_ensemble(AFMTJ_PARAMS, m0, torch.ones(4),
+                                             1e-13, 10),
+        "run_campaign": lambda: run_campaign(AFMTJ_PARAMS, grid,
+                                             use_cache=False),
+        "wer_margined_pulse": lambda: wer_margined_pulse("afmtj",
+                                                         use_cache=False),
+        "write_verify": lambda: write_verify(
+            "afmtj", 4, WritePolicy(pulse=1e-10, use_cache=False)),
+        "write_verify_nominal": lambda: write_verify(
+            "afmtj", 4, WritePolicy(use_cache=False)),
+        "measured_write_timings": lambda: measured_write_timings(
+            "afmtj", cols=4, n_rows=1, use_cache=False),
+        "simulate_write": lambda: simulate_write(AFMTJ_PARAMS, 1.0,
+                                                 n_steps=10),
+        "make_subarray": lambda: make_subarray("afmtj"),
+        "build_hierarchy": lambda: build_hierarchy("afmtj"),
+        "evaluate_system": lambda: evaluate_system("afmtj"),
+    }
+
+
+@pytest.mark.parametrize("name", sorted([
+    "run_ensemble", "run_campaign", "wer_margined_pulse", "write_verify",
+    "write_verify_nominal", "measured_write_timings", "simulate_write",
+    "make_subarray", "build_hierarchy", "evaluate_system"]))
+def test_entry_points_default_to_cuda_and_raise_without_it(name):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
+
+
+def test_kernel_wrapper_rejects_other_devices():
+    from repro_torch.core.params import AFMTJ_PARAMS
+    from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
+
+    with pytest.raises(ValueError):
+        llg_rk4_kernel(torch.zeros(8, 512, device="meta"), AFMTJ_PARAMS,
+                       1e-13, 1)
