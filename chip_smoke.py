@@ -6,8 +6,8 @@
 Phases (any failure raises and the script exits non-zero):
 
 0. Print the card (``nvidia-smi`` name and power limit), PyTorch and CUDA
-   versions; build ``src/repro_torch/kernels/csrc/llg_rk4.cu`` with nvcc;
-   TF32 off.
+   versions; build ``src/repro_torch/kernels/csrc/llg_rk4.cu`` and
+   ``analog_mac.cu`` with one nvcc each, started together; TF32 off.
 1. The LLG kernel against its plain PyTorch version on the card, on the
    same inputs: deterministic and thermal, chunk 0 and 64, ragged step
    budgets, two Brown sigmas, single-sublattice (MTJ) and variation rows.
@@ -28,11 +28,36 @@ Phases (any failure raises and the script exits non-zero):
    (4,096 and 8,192 lanes) and the 128-sample WER ladder, for both device
    kinds.
 
-The kernel's launch counter is set to 0 before phase 2 and read after
-phase 3's campaign; the second-to-last line is the per-kernel JSON record
-and the last line ``{"ok": true, "device": {...}}``.  Campaign caching is
-off (``use_cache=False``, and a fresh empty cache directory for the calls
-that cache internally) so no result can skip the kernel.
+5. Analog MVM and model-level accuracy (kernels of
+   ``src/repro_torch/kernels/csrc/analog_mac.cu``):
+   a. the bit-line MAC (B3), XNOR GEMM (B4) and fake-analog MVM (B5)
+      kernels against their plain versions on the card, at the reference
+      tests' odd shapes and at every full-width launch shape of qwen2-0.5b
+      (M = 128 = batch 2 x seq 64; (K, N) = (896, 896) wq/wo, (896, 128)
+      wk/wv, (896, 4864) w_gate/w_up, (4864, 896) w_down, (896, 151,936)
+      unembed), on the operands the path builds; each timed with CUDA
+      events beside its plain version, its bound and the one PyTorch call
+      computing the same function (``torch.matmul``, beside B3 without its
+      ADC and B4 without binarize; none for B5).
+      Bounds: B3 rtol 1e-5 / atol 1e-8 without ADC, at most 1 LSB on under
+      1% of elements with it; B4 exact; B5 rtol 1e-6 / atol 1e-6 x decode
+      or at most 1 LSB on under 1%; B5's raw currents bit-equal to B3's on
+      the same g_diff;
+   b. the path at full width through its entry points:
+      ``model_accuracy_surface`` (fake, adc 4/6/8, TMR 5.0), the device
+      mode twice through the programming cache (adc 8, TMR 5.0; ~2 GB under
+      ``build/``, deleted at the end) and ``model_accuracy(mode="bnn")``.
+      Fails unless fake vs device gives KL < 1e-4 with token match 1.0,
+      the second device call is bit-identical, KL falls with adc bits, and
+      every kernel launched 169 times per forward (24 x 7 linears plus the
+      unembed).
+
+Each kernel's launch counter is set to 0 before its main-path run (phases
+2-3 for the LLG kernel, 5b for the analog kernels) and read after it; the
+second-to-last line is the per-kernel JSON record and the last line
+``{"ok": true, "device": {...}}``.  Campaign caching is off
+(``use_cache=False``, and a fresh empty cache directory for the calls that
+cache internally) so no result can skip the kernel.
 """
 from __future__ import annotations
 
@@ -63,8 +88,27 @@ KERNEL_ATOL = 2e-5
 # division and one per sqrtf; logf/sinf/cosf issue none).  Each
 # transcendental counts as one float32 operation, so the bound is a floor.
 OPS_PER_LANE_STEP = {2: (606, 36), 1: (317, 20)}
+# the deterministic kernel (THERMAL = false): no noise and no thermal-field
+# adds in the right-hand sides, no Box-Muller square roots (llg_rk4.cu)
+OPS_PER_LANE_STEP_DET = {2: (540, 33), 1: (272, 17)}
 H100_FP32_OPS_S = 67e12        # NVIDIA data sheet, H100 SXM, 700 W
 H100_SFU_OPS_S = 132 * 16 * 1.98e9   # 16 SFU lanes / SM / clock, boost clock
+H100_HBM_BYTES_S = 3.35e12     # NVIDIA data sheet, H100 SXM, HBM3
+
+# Phase 5: qwen2-0.5b's linears at batch 2 x seq 64 (M = 128 rows)
+QWEN_M = 128
+QWEN_SHAPES = [(896, 896, "wq/wo"), (896, 128, "wk/wv"),
+               (896, 4864, "w_gate/w_up"), (4864, 896, "w_down"),
+               (896, 151936, "unembed")]
+ODD_SHAPES = [(3, 200, 77), (65, 130, 190), (1, 1, 1), (129, 127, 128)]
+LINEARS_PER_FORWARD = 24 * 7 + 1
+# float32 operations per element outside the product (counted from
+# csrc/analog_mac.cu): the ADC epilogue (divide, clip x2, multiply, round,
+# divide, multiply) and B5's decode multiply per output; B5's conductance
+# replay per (k, n) element without FET / fail decode (targets: 2 max,
+# 1 negate, 2 multiply, 2 add; att_p tp - att_n tn: 2 multiply, 1 subtract)
+ADC_OPS = 7
+REPLAY_OPS = 10
 
 
 def log(*a):
@@ -126,10 +170,10 @@ def executed_lane_steps(out, budget, n_kernel: int, chunk: int,
     return int(np.minimum(bud, np.minimum(lane_exit, n_kernel)).sum())
 
 
-def bound_ms(lane_steps: int, nsub: int) -> tuple:
+def bound_ms(lane_steps: int, nsub: int, ops=OPS_PER_LANE_STEP) -> tuple:
     """(least milliseconds for ``lane_steps`` of the ``nsub`` kernel, and
     which unit bounds it: 'fp32' or 'sfu')."""
-    fp32, sfu = OPS_PER_LANE_STEP[nsub]
+    fp32, sfu = ops[nsub]
     t_fp = fp32 * lane_steps / H100_FP32_OPS_S
     t_sfu = sfu * lane_steps / H100_SFU_OPS_S
     return 1e3 * max(t_fp, t_sfu), "fp32" if t_fp >= t_sfu else "sfu"
@@ -187,13 +231,26 @@ def phase1(torch, dev):
         ("afmtj variation rows chunk=64 4096x1500", AFMTJ_PARAMS, 0.1e-12,
          1500, (0.6, 2.0), dict(chunk=64, variation=True)),
     ]
+    records = []
     for tag, p, dt, n, (vlo, vhi), th in cases:
         st = states(p, vlo, vhi)
         kw = {} if th is None else thermal_kw(p, dt, n, **th)
-        out_k, ms_k = cuda_ms(lambda: llg_rk4_kernel(st, p, dt, n, **kw))
+        run = lambda: llg_rk4_kernel(st, p, dt, n, **kw)   # noqa: E731
+        run()          # warm: CUDA loads the module on its first launch
+        out_k, ms_k = cuda_ms(run)
         out_p, ms_p = cuda_ms(lambda: ref.ref_llg_rk4(st, p, dt, n, **kw))
-        compare(out_k, out_p, n, f"{tag} (kernel {ms_k:.2f} ms, plain "
-                f"{ms_p:.0f} ms)")
+        err = compare(out_k, out_p, n, f"{tag} (kernel {ms_k:.2f} ms, plain "
+                      f"{ms_p:.0f} ms)")
+        rec = dict(case=tag, ms=ms_k, plain_ms=ms_p, max_abs_err=err)
+        if th is None:
+            # the deterministic kernel runs every lane for all n steps
+            b_ms, unit = bound_ms(cells * n, p.n_sublattices,
+                                  OPS_PER_LANE_STEP_DET)
+            rec.update(lane_steps=cells * n, bound_ms=b_ms, bound_unit=unit)
+            log(f"    {cells * n} lane-steps -> bound {b_ms:.4f} ms ({unit});"
+                f" kernel at {100 * b_ms / ms_k:.2f}% of it")
+        records.append(rec)
+    return records
 
 
 def phase2(torch):
@@ -354,6 +411,281 @@ def main_path_shapes(dev, campaign_grid) -> list:
     return out
 
 
+# --- phase 5: analog MVM and model-level accuracy ------------------------------
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` calls after one warm call,
+    timed with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def gemm_bound(m: int, k: int, n: int, extra_ops: int, n_bytes: int):
+    """(least ms, 'operations' or 'bytes') for an (m, k) @ (k, n) product
+    plus ``extra_ops`` float32 operations moving ``n_bytes``."""
+    t_ops = (2 * m * k * n + extra_ops) / H100_FP32_OPS_S
+    t_bytes = n_bytes / H100_HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def hold_close(out, plain, tag: str, rtol: float, atol: float,
+               lsb=None) -> float:
+    """Max |kernel - plain|.  Without ``lsb`` every element must lie within
+    rtol / atol; with it (an ADC'd output) at most 1 LSB anywhere and off
+    rtol / atol on under 1% of elements (a float-ulp difference in the sum
+    can land on a quantizer bin edge)."""
+    import torch
+
+    if out.shape != plain.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"{tag}: shape {tuple(out.shape)} / non-finite")
+    diff = (out - plain).abs()
+    off = diff > atol + rtol * plain.abs()
+    frac = off.float().mean().item()
+    d = diff.max().item()
+    ok = (frac == 0.0) if lsb is None else (d <= lsb * 1.001 and frac < 0.01)
+    if not ok:
+        raise AssertionError(f"{tag}: kernel disagrees with its plain version "
+                             f"(max|d| {d:.3e}, {100 * frac:.3f}% off)")
+    return d
+
+
+def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
+                         timed: bool) -> dict:
+    """B3, B4 and B5 on the operands the model path builds for an
+    (m, k) @ (k, n) linear (unit-normal activations, N(0, 1/k) weights),
+    against their plain versions; B5's raw currents against B3's on the same
+    g_diff; and, if ``timed``, kernel / plain / library times."""
+    from repro_torch.circuit.bitline import BitlineParams
+    from repro_torch.core.params import PROCESS_CORNERS, VariationSpec
+    from repro_torch.imc import analog_pipeline as ap
+    from repro_torch.imc import model_analog as ma
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitline_mac import bitline_mac_kernel
+    from repro_torch.kernels.fake_analog import (ROW_DECODE, ROW_I_MAX,
+                                                 fake_analog_kernel)
+    from repro_torch.kernels.xnor_gemm import binarize_acc, xnor_gemm_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(m * 7919 + k * 31 + n)
+    w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    bl = BitlineParams(rows=k)
+    rec = {"shape": [m, k, n], "what": what}
+    tag = f"{what} ({m}x{k} @ {k}x{n})"
+
+    # B3 on the device path's operands (adc 8, TMR 5.0) and ideal
+    cfg = ap.AnalogConfig(adc_bits=8, tmr=5.0)
+    arr = ap.program_weights(w, "afmtj", cfg, device=dev)
+    v, i_max, _ = ap.kernel_operands(arr, x)
+    g = arr.g_diff
+    err3 = hold_close(bitline_mac_kernel(v, g, 0, i_max),
+                      ref.ref_bitline_mac(v, g, 0, i_max),
+                      f"bitline_mac adc 0 {tag}", 1e-5, 1e-8)
+    lsb = i_max / (2 ** 7 - 1)
+    err3 = max(err3, hold_close(bitline_mac_kernel(v, g, 8, i_max),
+                                ref.ref_bitline_mac(v, g, 8, i_max),
+                                f"bitline_mac adc 8 {tag}", 1e-5, 1e-8, lsb))
+
+    # B4 on the bnn path's operands, exact
+    xb, wb = binarize_acc(x, 1), binarize_acc(w, 1)
+    for a_, w_, binarize, tie in ((xb, wb, False, 1), (xb, wb, True, -1),
+                                  (xb.bfloat16(), wb.bfloat16(), False, 1)):
+        if not torch.equal(xnor_gemm_kernel(a_, w_, binarize, tie),
+                           ref.ref_xnor_gemm(a_, w_, binarize, tie)):
+            raise AssertionError(f"xnor_gemm {a_.dtype} binarize={binarize} "
+                                 f"{tag}: not exact")
+
+    # B5 on the fake path's operands: the path's (no FET, no fail plane) and
+    # with the ss corner's FET round trip + write-BER fail plane
+    err5 = 0.0
+    fake_ops = {}
+    for label, acfg in (
+            ("path", ap.AnalogConfig(adc_bits=8, tmr=5.0)),
+            ("fet+fail", ap.AnalogConfig(
+                adc_bits=8, tmr=5.0, write_ber=1e-2, variation=VariationSpec(
+                    corners=(PROCESS_CORNERS["ss"],))))):
+        apply_fet, g_scale = ma._systematic_g_scale(acfg)
+        use_fail = acfg.write_ber > 0.0
+        scal = ma._fake_scalars("afmtj", acfg, bl, g_scale, None, dev)
+        ops = ma.fake_operands(x, w, bl, scal, apply_fet=apply_fet,
+                               use_fail=use_fail, ir_drop=True,
+                               has_imax=False, decode=True)
+        fk = dict(adc_bits=8, apply_fet=apply_fet, use_fail=use_fail)
+        out = fake_analog_kernel(*ops, **fk)
+        plain = ref.ref_fake_analog(*ops, **fk)
+        dec = ops[3][ROW_DECODE, 0].item()
+        lsb5 = dec * ops[3][ROW_I_MAX, 0].item() / (2 ** 7 - 1)
+        err5 = max(err5, hold_close(out, plain, f"fake_analog {label} {tag}",
+                                    1e-6, 1e-6 * dec, lsb5))
+        fake_ops[label] = (ops, fk)
+
+    # B5's raw currents bit-equal to B3's on the same g_diff (no IR drop,
+    # shared full scale)
+    cfg0 = ap.AnalogConfig(adc_bits=8, tmr=5.0, ir_drop=False)
+    arr0 = ap.program_weights(w, "afmtj", cfg0, device=dev)
+    v0, im0, _ = ap.kernel_operands(arr0, x)
+    scal0 = ma._fake_scalars("afmtj", cfg0, bl, 1.0, im0, dev)
+    ops0 = ma.fake_operands(x, w, bl, scal0, apply_fet=False, use_fail=False,
+                            ir_drop=False, has_imax=True, decode=False)
+    raw5 = fake_analog_kernel(*ops0, adc_bits=8)
+    raw3 = bitline_mac_kernel(v0, arr0.g_diff, 8, im0)
+    if not torch.equal(raw5, raw3):
+        raise AssertionError(f"{tag}: fake_analog raw currents differ from "
+                             f"bitline_mac's on the same g_diff")
+    log(f"  {tag}: bitline_mac max|d| {err3:.3e}, xnor exact, fake_analog "
+        f"max|d| {err5:.3e}, raw currents bit-equal")
+    rec.update(bitline_mac_err=err3, fake_analog_err=err5)
+    if not timed:
+        return rec
+
+    f4 = 4
+    ops_p, fk_p = fake_ops["path"]
+    reps = 10
+    b3_bound = gemm_bound(m, k, n, ADC_OPS * m * n, f4 * (m * k + k * n + m * n))
+    b4_bound = gemm_bound(m, k, n, 0, f4 * (m * k + k * n + m * n))
+    b5_bound = gemm_bound(m, k, n, REPLAY_OPS * k * n + (ADC_OPS + 1) * m * n,
+                          f4 * (m * k + k * n + 4 * n + m * n))
+    rec["bitline_mac"] = dict(
+        ms=time_ms(torch, lambda: bitline_mac_kernel(v, g, 8, i_max), reps),
+        ms_adc0=time_ms(torch, lambda: bitline_mac_kernel(v, g, 0, i_max),
+                        reps),
+        plain_ms=time_ms(torch, lambda: ref.ref_bitline_mac(v, g, 8, i_max), 3),
+        library_ms=time_ms(torch, lambda: torch.matmul(v, g), reps),
+        bound_ms=b3_bound[0], bound_by=b3_bound[1])
+    rec["xnor_gemm"] = dict(
+        ms=time_ms(torch, lambda: xnor_gemm_kernel(xb, wb), reps),
+        plain_ms=time_ms(torch, lambda: ref.ref_xnor_gemm(xb, wb), 3),
+        library_ms=time_ms(torch, lambda: torch.matmul(xb, wb), reps),
+        bound_ms=b4_bound[0], bound_by=b4_bound[1])
+    rec["fake_analog"] = dict(
+        ms=time_ms(torch, lambda: fake_analog_kernel(*ops_p, **fk_p), reps),
+        plain_ms=time_ms(torch, lambda: ref.ref_fake_analog(*ops_p, **fk_p), 3),
+        library_ms=None, bound_ms=b5_bound[0], bound_by=b5_bound[1])
+    for name in ("bitline_mac", "xnor_gemm", "fake_analog"):
+        r = rec[name]
+        lib = ("" if r["library_ms"] is None
+               else f", torch.matmul {r['library_ms']:.4f} ms")
+        if "ms_adc0" in r:
+            lib += f" (kernel without ADC {r['ms_adc0']:.4f} ms)"
+        log(f"    {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of it")
+    return rec
+
+
+def phase5_hold(torch, dev) -> list:
+    log("phase 5a: analog kernels vs plain versions (odd shapes, then every "
+        "full-width qwen2-0.5b launch shape, timed)")
+    for m, k, n in ODD_SHAPES:
+        hold_analog_at_shape(torch, dev, m, k, n, "odd shape", timed=False)
+    return [hold_analog_at_shape(torch, dev, QWEN_M, k, n, what, timed=True)
+            for k, n, what in QWEN_SHAPES]
+
+
+def phase5_path(torch, dev) -> dict:
+    """The model-level analog accuracy path at full width, through its
+    entry points; the analog kernels' counters are set to 0 just before and
+    read just after."""
+    from repro_torch.imc import model_analog as ma
+    from repro_torch.imc.analog_pipeline import AnalogConfig
+    from repro_torch.kernels.bitline_mac import bitline_mac_kernel
+    from repro_torch.kernels.fake_analog import fake_analog_kernel
+    from repro_torch.kernels.xnor_gemm import xnor_gemm_kernel
+    from repro_torch.models.model import n_params as count_params
+
+    log("phase 5b: qwen2-0.5b at full width (24 layers, d_model 896, vocab "
+        "151,936, random weights from seed 0), batch 2 x seq 64, every "
+        "linear through the analog MVM")
+    kernels = {"bitline_mac": bitline_mac_kernel,
+               "xnor_gemm": xnor_gemm_kernel,
+               "fake_analog": fake_analog_kernel}
+    cache_dir = ROOT / "build" / "smoke-programming-cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    for kern in kernels.values():
+        kern.launches = 0
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    kw = dict(batch=2, seq_len=64, smoke=False)
+    surf = timed("fake surface (3 forwards)", lambda: ma.model_accuracy_surface(
+        "qwen2-0.5b", mode="fake", adc_bits=(4, 6, 8), tmrs=(5.0,), **kw))
+    state = timed("setup", lambda: ma._setup("qwen2-0.5b", False, 2, 64, 0))
+    cfg, params, tokens, ref_logits = state
+    want = (2, 64, cfg.vocab)
+    if tuple(ref_logits.shape) != want or not torch.isfinite(ref_logits).all():
+        raise AssertionError(f"exact logits {tuple(ref_logits.shape)} "
+                             f"not finite / wrong shape")
+    acfg = AnalogConfig(adc_bits=8, tmr=5.0)
+    y_dev = timed("device, programming", lambda: ma.analog_model_logits(
+        params, cfg, tokens, acfg, mode="device", cache_dir=str(cache_dir)))
+    y_dev2 = timed("device, cache hits", lambda: ma.analog_model_logits(
+        params, cfg, tokens, acfg, mode="device", cache_dir=str(cache_dir)))
+    y_fake = timed("fake adc 8", lambda: ma.analog_model_logits(
+        params, cfg, tokens, acfg, mode="fake"))
+    bnn = timed("bnn", lambda: ma.model_accuracy(
+        "qwen2-0.5b", AnalogConfig(), mode="bnn", _setup_state=state, **kw))
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    cache_bytes = sum(f.stat().st_size for f in cache_dir.glob("*.npz"))
+    shutil.rmtree(cache_dir, ignore_errors=True)
+
+    n_params = count_params(params)
+    log(f"  {n_params:,} parameters; programming cache {cache_bytes / 1e9:.3f}"
+        f" GB (deleted)")
+    for r in surf:
+        log(f"  fake   adc {r.adc_bits} TMR {r.tmr}: KL {r.kl:.6f}, token "
+            f"match {r.token_match:.4f}, ppl {r.ppl_analog:.1f} (exact "
+            f"{r.ppl_ref:.1f})")
+    kl_d, match_d, ppl_d, ppl_r = ma.logit_metrics(ref_logits, y_dev, tokens)
+    log(f"  device adc 8 TMR 5.0: KL {kl_d:.6f}, token match {match_d:.4f}, "
+        f"ppl {ppl_d:.1f} (exact {ppl_r:.1f})")
+    log(f"  bnn: KL {bnn.kl:.6f}, token match {bnn.token_match:.4f}, ppl "
+        f"{bnn.ppl_analog:.1f}")
+    kl_fd, match_fd, _, _ = ma.logit_metrics(y_dev, y_fake, tokens)
+    same = bool(torch.equal(y_dev, y_dev2))
+    log(f"  fake vs device (adc 8): KL {kl_fd:.3e}, token match {match_fd}, "
+        f"bit-identical {bool(torch.equal(y_dev, y_fake))}; second device "
+        f"call bit-identical: {same}")
+    for name, sec in walls.items():
+        log(f"  wall {name}: {sec:.2f} s")
+    log(f"  launches: {launches}")
+    kl = {r.adc_bits: r.kl for r in surf}
+    for y in (y_dev, y_fake):
+        if tuple(y.shape) != want or not torch.isfinite(y).all():
+            raise AssertionError("analog logits not finite / wrong shape")
+    if not (abs(kl_fd) < 1e-4 and match_fd == 1.0):
+        raise AssertionError(f"fake vs device: KL {kl_fd}, match {match_fd}")
+    if not same:
+        raise AssertionError("device mode through the programming cache is "
+                             "not bit-identical")
+    if not kl[4] > kl[6] > kl[8]:
+        raise AssertionError(f"KL not monotone in adc bits: {kl}")
+    expect = {"fake_analog": 4 * LINEARS_PER_FORWARD,
+              "bitline_mac": 2 * LINEARS_PER_FORWARD,
+              "xnor_gemm": LINEARS_PER_FORWARD}
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    return dict(launches=launches, walls=walls, kl=kl, kl_device=kl_d,
+                match_device=match_d, kl_bnn=bnn.kl, kl_fake_vs_device=kl_fd,
+                cache_bytes=cache_bytes,
+                ppl=dict(exact=ppl_r, device=ppl_d, bnn=bnn.ppl_analog),
+                n_params=n_params)
+
+
 def main() -> int:
     import torch
 
@@ -370,18 +702,19 @@ def main() -> int:
     log(f"phase 0: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_build = build.build("llg_rk4")
-    log(f"  nvcc build of llg_rk4.cu: {t_build:.1f} s" if t_build else
-        "  llg_rk4.cu already built")
-    for line in build.build_log("llg_rk4").splitlines():
-        if "registers" in line or "spill" in line:
-            log("   ", line.strip())
+    t_build = build.build_many(("llg_rk4", "analog_mac"))
+    for name, sec in t_build.items():
+        log(f"  nvcc build of {name}.cu: {sec:.1f} s" if sec else
+            f"  {name}.cu already built")
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log("   ", line.strip())
     cache = ROOT / "build" / "smoke-campaign-cache"
     shutil.rmtree(cache, ignore_errors=True)
     os.environ["REPRO_TORCH_CAMPAIGN_CACHE"] = str(cache)
     dev = torch.device("cuda")
 
-    phase1(torch, dev)
+    phase1_cases = phase1(torch, dev)
     llg_rk4_kernel.launches = 0
     launches_ev = phase2(torch)
     main_launches, grid, wall = phase3(torch, dev)
@@ -390,6 +723,8 @@ def main() -> int:
     shapes = main_path_shapes(dev, grid)
     shutil.rmtree(cache, ignore_errors=True)
     m = shapes[0]
+    analog_shapes = phase5_hold(torch, dev)
+    path = phase5_path(torch, dev)
 
     record = {"kernels": [{
         "name": "llg_rk4",
@@ -408,7 +743,34 @@ def main() -> int:
         "campaign_wall_s": wall,
         "launches_per_evaluate_system_p99": launches_ev,
         "main_path_shapes": shapes,
+        "phase1_cases": phase1_cases,
     }]}
+    replaces = {"bitline_mac": "src/repro/kernels/bitline_mac.py:87",
+                "xnor_gemm": "src/repro/kernels/xnor_gemm.py:76",
+                "fake_analog": "src/repro/kernels/fake_analog.py:174"}
+    errs = {"bitline_mac": "bitline_mac_err", "xnor_gemm": None,
+            "fake_analog": "fake_analog_err"}
+    widest = analog_shapes[-1]
+    for name, line in replaces.items():
+        r = widest[name]
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/analog_mac.cu",
+            "replaces": line,
+            "launches": path["launches"][name],
+            "max_abs_err": (0.0 if errs[name] is None else
+                            max(x[errs[name]] for x in analog_shapes)),
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": "128 x 896 @ 896 x 151936 (unembed)",
+            "main_path_shapes": [dict(x[name], shape=x["shape"],
+                                      what=x["what"]) for x in analog_shapes],
+        })
+    record["model_path"] = {k: v for k, v in path.items() if k != "launches"}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps(record), flush=True)

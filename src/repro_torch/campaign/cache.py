@@ -54,16 +54,21 @@ def load_arrays(key: str, cache_dir: Optional[str] = None) -> Optional[dict]:
 
 
 def store_arrays(key: str, arrays: dict, header: dict,
-                 cache_dir: Optional[str] = None) -> Path:
-    """Atomically persist named arrays + a json header under ``key``."""
+                 cache_dir: Optional[str] = None,
+                 compress: bool = True) -> Path:
+    """Atomically persist named arrays + a json header under ``key``.
+    ``compress=False`` stores the arrays as they are: for large float
+    planes (the programming cache's conductances) deflate costs far more
+    time than it saves space."""
     assert "header" not in arrays, "reserved entry name"
     d = Path(cache_dir or default_cache_dir())
     d.mkdir(parents=True, exist_ok=True)
     final = d / f"{key}.npz"
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    save = np.savez_compressed if compress else np.savez
     try:
         with os.fdopen(fd, "wb") as f:
-            np.savez_compressed(
+            save(
                 f, **arrays,
                 header=np.frombuffer(
                     json.dumps(header, default=float).encode(), dtype=np.uint8))

@@ -52,6 +52,16 @@ def write_path_rc(bl: BitlineParams, settle_frac: float = 0.95) -> float:
             + bl.t_wl_setup)
 
 
+def column_ir_drop(g_column_total: torch.Tensor,
+                   bl: BitlineParams) -> torch.Tensor:
+    """Per-column IR-drop attenuation for multi-row analog MVM:
+    1 / (1 + R_line G_col) with R_line = r_wire * rows / 2, the one-segment
+    lumped bit line (``g_column_total`` = summed effective cell
+    conductance of the column)."""
+    r_line = bl.r_wire_per_cell * bl.rows / 2.0
+    return 1.0 / (1.0 + r_line * g_column_total)
+
+
 def multi_row_current(bits: torch.Tensor, dev: DeviceParams,
                       bl: BitlineParams) -> torch.Tensor:
     """Aggregate read current [A] for multi-row activation: bits

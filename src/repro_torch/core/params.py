@@ -9,10 +9,18 @@ anchors, B_E = J_AF / (Ms 6 t_f)) is documented in the reference module.
 ``params_from_reference`` rebuilds a ``DeviceParams`` from
 ``dataclasses.asdict()`` of the reference's dataclass, so both packages can
 be driven from one parameter set.
+
+``ProcessCorner`` / ``VariationSpec`` are the systematic process corners
+and the device-to-device draws of the reference (DESIGN.md §9); the draws
+come from the counter-RNG of ``kernels.noise``, whose uint32 stream is the
+reference's bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
+
+import numpy as np
 
 # --- physical constants (SI) -------------------------------------------------
 GAMMA = 1.760859630e11     # gyromagnetic ratio [rad / (s T)]
@@ -114,3 +122,125 @@ def _mtj_params() -> DeviceParams:
 
 AFMTJ_PARAMS: DeviceParams = _afmtj_params()
 MTJ_PARAMS: DeviceParams = _mtj_params()
+
+
+# --- process corners and device-to-device variation (DESIGN.md §9) ----------
+# counter-RNG draw ids, one decorrelated stream per varied parameter
+_PID_ALPHA, _PID_B_ANISO, _PID_VOLUME, _PID_R = 0, 1, 2, 3
+# Weyl salts folding (seed, stream) into a 32-bit stream base
+_VAR_GOLD = 0x9E3779B1
+_VAR_STREAM = 0xC2B2AE35
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessCorner:
+    """One systematic process corner: multiplicative factors on the nominal
+    constants plus the D2D sigmas of the within-array spread around it
+    (conventions as in the reference: ``r_factor`` scales R_P and R_AP
+    together; the resistance draw preserves the mean conductance)."""
+
+    name: str = "tt"
+    alpha_factor: float = 1.0
+    b_aniso_factor: float = 1.0
+    volume_factor: float = 1.0
+    r_factor: float = 1.0
+    sigma_alpha: float = 0.0
+    sigma_b_aniso: float = 0.0
+    sigma_volume: float = 0.0
+    sigma_r: float = 0.0
+
+    @property
+    def is_nominal(self) -> bool:
+        return (self.alpha_factor == self.b_aniso_factor ==
+                self.volume_factor == self.r_factor == 1.0 and
+                self.sigma_alpha == self.sigma_b_aniso ==
+                self.sigma_volume == self.sigma_r == 0.0)
+
+
+CORNER_TT = ProcessCorner("tt")
+CORNER_SS = ProcessCorner("ss", alpha_factor=1.15, b_aniso_factor=1.10,
+                          volume_factor=0.95, r_factor=1.15)
+CORNER_FF = ProcessCorner("ff", alpha_factor=0.87, b_aniso_factor=0.91,
+                          volume_factor=1.05, r_factor=0.87)
+PROCESS_CORNERS = {c.name: c for c in (CORNER_TT, CORNER_SS, CORNER_FF)}
+
+
+@dataclasses.dataclass(frozen=True)
+class VariationSpec:
+    """Hashable process-variation scenario: systematic corners plus D2D
+    draws salted by (seed, stream, parameter) but not by corner position,
+    so every corner of a spec consumes the same standard normals (common
+    random numbers, as in the reference)."""
+
+    corners: Tuple[ProcessCorner, ...] = (CORNER_TT,)
+    seed: int = 0
+    distribution: str = "lognormal"     # "lognormal" | "normal"
+
+    def __post_init__(self):
+        object.__setattr__(self, "corners", tuple(self.corners))
+        assert self.corners, "VariationSpec needs at least one corner"
+        assert self.distribution in ("lognormal", "normal"), self.distribution
+
+    @property
+    def n_corners(self) -> int:
+        return len(self.corners)
+
+    @property
+    def is_nominal(self) -> bool:
+        return all(c.is_nominal for c in self.corners)
+
+    def at_corner(self, index: int) -> "VariationSpec":
+        """Single-corner view (same seed/distribution — same D2D draws)."""
+        return dataclasses.replace(self, corners=(self.corners[index],))
+
+    @classmethod
+    def from_g_sigma(cls, g_sigma: float, seed: int = 0) -> "VariationSpec":
+        """The spec equivalent of the legacy conductance-only lognormal
+        ``AnalogConfig.g_sigma``: a nominal corner with that resistance
+        sigma."""
+        return cls(corners=(dataclasses.replace(CORNER_TT, name="tt/d2d",
+                                                sigma_r=float(g_sigma)),),
+                   seed=seed)
+
+    def _normals(self, param_id: int, n: int, stream: int) -> np.ndarray:
+        """(n,) float64 standard normals for one varied parameter — a pure
+        function of (seed, stream, param_id, lane)."""
+        from repro_torch.kernels import noise   # keep params import-light
+
+        base = (int(self.seed) * _VAR_GOLD +
+                (int(stream) + 1) * _VAR_STREAM) & 0xFFFFFFFF
+        lanes = noise.as_uint32(noise.cell_seeds(base, n))
+        z, _ = noise.normal_pair(lanes, int(param_id) & 0xFFFFFFFF)
+        return z.double().numpy()
+
+    def _factor(self, center: float, sigma: float, param_id: int, n: int,
+                stream: int, mean_preserving_reciprocal: bool = False
+                ) -> np.ndarray:
+        """(n,) multiplicative factors ~ D2D(center, sigma)."""
+        if sigma == 0.0:
+            return np.full(n, float(center))
+        z = self._normals(param_id, n, stream)
+        if self.distribution == "normal":
+            f = np.maximum(center * (1.0 + sigma * z), 0.05 * center)
+            if mean_preserving_reciprocal:
+                f = f * (1.0 + sigma * sigma)
+            return f
+        if mean_preserving_reciprocal:
+            return center * np.exp(sigma * z + 0.5 * sigma * sigma)
+        return center * np.exp(sigma * z - 0.5 * sigma * sigma)
+
+    def lane_factors(self, corner: ProcessCorner, n: int, stream: int = 0
+                     ) -> np.ndarray:
+        """(4, n) float64 factors (alpha, b_aniso, volume, r) for ``n``
+        lanes; ``stream`` decorrelates independent slices (the analog
+        programmer uses 0/1 for the pos/neg array)."""
+        return np.stack([
+            self._factor(corner.alpha_factor, corner.sigma_alpha,
+                         _PID_ALPHA, n, stream),
+            self._factor(corner.b_aniso_factor, corner.sigma_b_aniso,
+                         _PID_B_ANISO, n, stream),
+            self._factor(corner.volume_factor, corner.sigma_volume,
+                         _PID_VOLUME, n, stream),
+            self._factor(corner.r_factor, corner.sigma_r, _PID_R, n, stream,
+                         mean_preserving_reciprocal=True),
+        ])

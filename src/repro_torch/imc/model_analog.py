@@ -1,0 +1,649 @@
+"""Model-level analog accuracy: whole transformer forwards through the
+AFMTJ differential-conductance MVM (port of ``repro.imc.model_analog``,
+DESIGN.md §12).
+
+Every linear of the decoder forward (``models.model``) is routed through
+the analog MVM by the ``models.common.linear`` hook, and the logits are
+scored against the exact forward: KL, greedy token match, perplexity.
+Three execution modes per linear:
+
+  * ``fake``   — the fused fake-analog kernel (``kernels.fake_analog``):
+                 programming replayed inside the product, the operand
+                 preamble (scales, fail plane, IR rows) on tensors, the ADC
+                 full scale and decode gain sized on the host exactly as
+                 the device path sizes them (``fake_operands``);
+  * ``device`` — ``program_weights`` + ``analog_matmul`` through the
+                 bit-line kernel, behind the content-keyed programming
+                 cache below;
+  * ``bnn``    — the 1-bit XNOR path (``analog_pipeline.binary_matmul``).
+
+PyTorch runs eagerly, so the reference's ``jax.jit`` / ``lru_cache`` of
+executables has no counterpart: each linear is one kernel launch.  The
+forward is unrolled over layers, as in the reference.
+
+Random draws: model init (``init_model_params``) and the write-BER masks
+(``analog_pipeline.write_ber_masks``) come from ``torch.Generator``s; the
+tokens come from numpy's ``default_rng``, exactly the reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.campaign import cache as _cache
+from repro_torch.circuit.bitline import BitlineParams, column_ir_drop
+from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.registry import get_arch, smoke_config
+from repro_torch.core.params import PROCESS_CORNERS, VariationSpec
+from repro_torch.imc import analog_pipeline as ap
+from repro_torch.imc import faults as hard_faults
+from repro_torch.imc.analog_pipeline import (AnalogConfig, ProgrammedArray,
+                                             _device_for, _resolved_variation,
+                                             analog_matmul, binary_matmul,
+                                             effective_conductances,
+                                             program_weights)
+from repro_torch.imc.faults import FaultSpec, RepairPolicy
+from repro_torch.kernels.fake_analog import (AUX_ROWS, ROW_ATT_NEG, ROW_ATT_POS,
+                                             ROW_DECODE, ROW_G_AP, ROW_G_FS,
+                                             ROW_G_SCALE, ROW_I_MAX,
+                                             ROW_R_ACCESS, fake_analog_kernel,
+                                             pos_neg_conductance)
+from repro_torch.models import model as model_mod
+from repro_torch.models.common import intercept_linears, rms_norm
+
+# bumped when the programming chain changes numerically
+PROGRAMMING_VERSION = 1
+_F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# fake-analog fast path (single projection)
+# ---------------------------------------------------------------------------
+def fake_operands(x, w, bl: BitlineParams, scal: Dict[str, Any], *,
+                  apply_fet: bool, use_fail: bool, ir_drop: bool,
+                  has_imax: bool, decode: bool, use_faults: bool = False,
+                  repair: Optional[RepairPolicy] = None):
+    """(v, wn, fail, aux): the fused kernel's operands for ``x @ w``, the
+    preamble of the reference's ``_fake_mvm_body`` step for step.
+
+    One deliberate difference: the reference keeps the ADC full scale and
+    the decode gain as traced float32 scalars (``_round_2sig``), because its
+    forward is jitted.  The port runs eagerly, so it reduces the same
+    float32 statistics to host floats and sizes both exactly as the device
+    path does (``analog_pipeline.adc_full_scale`` / ``decode_gain``, float64):
+    the fake and device modes then agree bit for bit on the same inputs.
+    The float32 version differs by ulps, which 24 random layers of
+    qwen2-0.5b amplify to a logits KL of ~4e-3 between the modes (H100
+    measurement, PERF.md)."""
+    x = x.to(_F32)
+    w = w.to(_F32)
+    dev = w.device
+    k_rows, n_cols = w.shape
+    g_ap, g_fs = scal["g_ap"], scal["g_fs"]
+
+    w_scale = float(torch.max(torch.abs(w)))
+    if w_scale == 0.0:
+        w_scale = 1.0
+    wn = w / ap._scalar(w_scale, dev)
+
+    if use_fail:
+        # the same cells as program_weights' residual write errors
+        f_pos, f_neg = ap.write_ber_masks(scal["seed"], scal["ber"],
+                                          wn.shape, dev)
+        fail = f_pos.to(_F32) + 2.0 * f_neg.to(_F32)
+    else:
+        fail = torch.zeros_like(wn)
+
+    col_ok = None
+    if use_faults:
+        # fault bits are disjoint from the write-ber bits: + is bitwise OR
+        code = hard_faults.fault_code_plane(
+            k_rows, n_cols, seed=scal["f_seed"], stuck_on=scal["f_on"],
+            stuck_off=scal["f_off"], dead_row=scal["f_drow"], device=dev)
+        col_ok = hard_faults.column_ok_plane(
+            n_cols, seed=scal["f_seed"], dead_col=scal["f_dcol"], device=dev)
+        code, col_ok = hard_faults.apply_repair(code, col_ok, repair)
+        fail = fail + code
+
+    tp, tn = pos_neg_conductance(wn, fail, g_ap, g_fs, scal["g_scale"],
+                                 scal["r_access"], apply_fet=apply_fet,
+                                 use_fail=use_fail or use_faults)
+    att_mean = 1.0
+    if ir_drop:
+        att_p = column_ir_drop(torch.sum(tp, dim=0), bl)
+        att_n = column_ir_drop(torch.sum(tn, dim=0), bl)
+        if col_ok is None:
+            att_mean = float(0.5 * (torch.mean(att_p) + torch.mean(att_n)))
+        else:
+            # dead bit lines read zero; the decode gain calibrates over
+            # live columns only (the device path's association)
+            live = ap._scalar(max(float(torch.sum(col_ok)), 1.0), dev)
+            att_mean = float(0.5 * (torch.sum(att_p * col_ok) / live
+                                    + torch.sum(att_n * col_ok) / live))
+            att_p = att_p * col_ok
+            att_n = att_n * col_ok
+    else:
+        ones = torch.ones((n_cols,), dtype=_F32, device=dev)
+        att_p = ones if col_ok is None else ones * col_ok
+        att_n = att_p
+
+    x_scale = float(torch.max(torch.abs(x)))
+    if x_scale == 0.0:
+        x_scale = 1.0
+    v = (scal["v_read"] * x) / ap._scalar(x_scale, dev)
+
+    if has_imax:
+        i_max = scal["i_max"]
+    else:
+        g_diff = att_p[None, :] * tp - att_n[None, :] * tn
+        g_rms = float(torch.sqrt(torch.mean(g_diff * g_diff)))
+        v_rms = float(torch.sqrt(torch.mean(v * v)))
+        i_max = ap.adc_full_scale(v_rms, g_rms, k_rows, scal["fs_sigmas"])
+    dec = (ap.decode_gain(x_scale, w_scale, scal["v_read_host"],
+                          scal["g_fs_host"], att_mean) if decode else 1.0)
+
+    def full(val):
+        return torch.broadcast_to(torch.as_tensor(val, dtype=_F32,
+                                                  device=dev), (n_cols,))
+
+    rows = [None] * AUX_ROWS
+    rows[ROW_ATT_POS], rows[ROW_ATT_NEG] = att_p, att_n
+    rows[ROW_I_MAX], rows[ROW_DECODE] = full(i_max), full(dec)
+    rows[ROW_G_AP], rows[ROW_G_FS] = full(g_ap), full(g_fs)
+    rows[ROW_G_SCALE], rows[ROW_R_ACCESS] = (full(scal["g_scale"]),
+                                             full(scal["r_access"]))
+    return v, wn, fail, torch.stack(rows)
+
+
+def _fake_mvm_body(x, w, bl: BitlineParams, scal: Dict[str, Any], *,
+                   adc_bits: int, apply_fet: bool, use_fail: bool,
+                   ir_drop: bool, has_imax: bool, decode: bool,
+                   use_faults: bool = False,
+                   repair: Optional[RepairPolicy] = None):
+    """Fake-analog ``x @ w``: ``fake_operands`` + the fused kernel."""
+    v, wn, fail, aux = fake_operands(
+        x, w, bl, scal, apply_fet=apply_fet, use_fail=use_fail,
+        ir_drop=ir_drop, has_imax=has_imax, decode=decode,
+        use_faults=use_faults, repair=repair)
+    return fake_analog_kernel(v, wn, fail, aux, adc_bits=adc_bits,
+                              apply_fet=apply_fet,
+                              use_fail=use_fail or use_faults)
+
+
+def _fake_faults_mode(cfg: AnalogConfig) -> bool:
+    """Whether the fused path draws the fault planes: presence of a spec
+    switches it on; drift is device-path only."""
+    if cfg.faults is None:
+        return False
+    if cfg.faults.drift_sigma > 0.0:
+        raise NotImplementedError(
+            "fake-analog path models hard fault codes only; conductance "
+            "drift draws per-cell factors — use mode='device'")
+    return True
+
+
+def _systematic_g_scale(cfg: AnalogConfig) -> Tuple[bool, float]:
+    """(apply_fet, 1/r_factor) for the fake path — systematic corners only;
+    per-cell D2D spreads need the device path."""
+    spec = _resolved_variation(cfg)
+    if spec is None:
+        return False, 1.0
+    c = spec.corners[0]
+    if c.sigma_alpha or c.sigma_b_aniso or c.sigma_volume or c.sigma_r:
+        raise NotImplementedError(
+            "fake-analog path models systematic process corners only; "
+            "per-cell D2D spreads need the device path (mode='device')")
+    return True, 1.0 / c.r_factor
+
+
+def _fake_scalars(kind: str, cfg: AnalogConfig, bl: BitlineParams,
+                  g_scale: float, i_max: Optional[float], device
+                  ) -> Dict[str, Any]:
+    """The scalar pack of the fake path: the cell constants as float32
+    tensors (the same roundings as ``program_weights``), the read-out
+    scalars as the device path's host floats, seeds and rates as Python
+    numbers."""
+    dp = _device_for(kind, cfg)
+    fs = cfg.faults
+    g_p_eff, g_ap_eff = effective_conductances(dp, bl)
+
+    def f32(val):
+        return torch.tensor(float(val), dtype=_F32, device=device)
+
+    return {
+        "g_ap": f32(g_ap_eff),
+        "g_fs": f32(g_p_eff - g_ap_eff),
+        "g_fs_host": g_p_eff - g_ap_eff,
+        "g_scale": f32(g_scale),
+        "r_access": f32(bl.r_access),
+        "v_read": f32(cfg.v_read),
+        "v_read_host": float(cfg.v_read),
+        "fs_sigmas": float(cfg.full_scale_sigmas),
+        "ber": float(cfg.write_ber),
+        "seed": int(cfg.seed),
+        "i_max": None if i_max is None else float(i_max),
+        "f_seed": 0 if fs is None else fs.seed & 0xFFFFFFFF,
+        "f_on": 0.0 if fs is None else fs.stuck_on_rate,
+        "f_off": 0.0 if fs is None else fs.stuck_off_effective,
+        "f_drow": 0.0 if fs is None else fs.dead_row_rate,
+        "f_dcol": 0.0 if fs is None else fs.dead_col_rate,
+    }
+
+
+def fake_analog_matmul(
+    w,                               # (K, N) float weights
+    x,                               # (M, K) activations (signed)
+    kind: str = "afmtj",
+    cfg: AnalogConfig = AnalogConfig(),
+    bl: Optional[BitlineParams] = None,
+    i_max: Optional[float] = None,   # explicit ADC full scale (parity pins)
+    decode: bool = True,             # False: raw quantized currents
+    device=None,
+) -> torch.Tensor:
+    """``x @ w`` through the fused fake-analog kernel — the equivalent of
+    ``program_weights`` + ``analog_matmul`` in one pass."""
+    dev = resolve_device(device)
+    w = ap._as_f32(w, dev)
+    x = ap._as_f32(x, dev)
+    assert w.dim() == 2 and x.dim() == 2 and x.shape[1] == w.shape[0], (
+        tuple(x.shape), tuple(w.shape))
+    bl = bl or BitlineParams(rows=w.shape[0])
+    apply_fet, g_scale = _systematic_g_scale(cfg)
+    scal = _fake_scalars(kind, cfg, bl, g_scale, i_max, dev)
+    return _fake_mvm_body(
+        x, w, bl, scal, adc_bits=cfg.adc_bits, apply_fet=apply_fet,
+        use_fail=cfg.write_ber > 0.0, ir_drop=cfg.ir_drop,
+        has_imax=i_max is not None, decode=decode,
+        use_faults=_fake_faults_mode(cfg), repair=cfg.repair)
+
+
+# ---------------------------------------------------------------------------
+# weight-programming cache (device path)
+# ---------------------------------------------------------------------------
+def _host_f32(a) -> np.ndarray:
+    if torch.is_tensor(a):
+        a = a.detach().to(_F32).cpu().numpy()
+    return np.ascontiguousarray(np.asarray(a, np.float32))
+
+
+def _array_digest(a) -> str:
+    a = _host_f32(a)
+    h = hashlib.sha256(a.tobytes())
+    h.update(str(a.shape).encode())
+    return h.hexdigest()
+
+
+def _tree_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        out = []
+        for k in tree:
+            out += _tree_leaves(tree[k], f"{path}[{k!r}]")
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, v in enumerate(tree):
+            out += _tree_leaves(v, f"{path}[{i}]")
+        return out
+    return [(path, tree)]
+
+
+def param_tree_hash(tree: Any) -> str:
+    """Content hash of a parameter tree, stable under dict-key order
+    (leaves keyed by their tree path)."""
+    payload = sorted((p, _array_digest(leaf)) for p, leaf in _tree_leaves(tree))
+    return _cache.content_key({"params": payload})
+
+
+def programming_key(w, kind: str, cfg: AnalogConfig,
+                    bl: BitlineParams) -> str:
+    """Content key over the programming-relevant axes only: read-out knobs
+    (``adc_bits``, ``full_scale_sigmas``, ``v_read``) reuse an entry; TMR,
+    corner, BER, seed, IR drop, faults, bit line and the weights re-key.
+    The port tag and the weights' device type keep entries of the port's
+    CUDA and CPU runs (equal to float32 rounding, not bit for bit) apart."""
+    spec = _resolved_variation(cfg)
+    return _cache.content_key({
+        "port": _cache.PORT_TAG,
+        "backend": w.device.type if torch.is_tensor(w) else "cpu",
+        "v": PROGRAMMING_VERSION,
+        "kind": kind,
+        "w": _array_digest(w),
+        "tmr": cfg.tmr,
+        "ir_drop": cfg.ir_drop,
+        "seed": cfg.seed,
+        "write_ber": cfg.write_ber,
+        "variation": None if spec is None else {
+            "corners": [dataclasses.asdict(c) for c in spec.corners],
+            "seed": spec.seed,
+            "distribution": spec.distribution,
+        },
+        "faults": (None if cfg.faults is None
+                   else dataclasses.asdict(cfg.faults)),
+        "repair": (None if cfg.repair is None
+                   else dataclasses.asdict(cfg.repair)),
+        "bitline": dataclasses.asdict(bl),
+    })
+
+
+def program_weights_cached(
+    w,
+    kind: str = "afmtj",
+    cfg: AnalogConfig = AnalogConfig(),
+    bl: Optional[BitlineParams] = None,
+    cache_dir: Optional[str] = None,
+    device=None,
+) -> ProgrammedArray:
+    """``program_weights`` behind the content-keyed store: a hit returns the
+    identical conductance plane and calibration scalars.  Entries are
+    stored uncompressed."""
+    dev = resolve_device(device)
+    w = ap._as_f32(w, dev) if not torch.is_tensor(w) else w.to(dev)
+    bl = bl or BitlineParams(rows=w.shape[0])
+    key = programming_key(w, kind, cfg, bl)
+    hit = _cache.load_arrays(key, cache_dir)
+    if hit is not None and "g_diff" in hit:
+        s = hit["scalars"]
+        return ProgrammedArray(
+            g_diff=torch.from_numpy(hit["g_diff"]).to(device=dev, dtype=_F32),
+            w_scale=float(s[0]), g_fs=float(s[1]), att_mean=float(s[2]),
+            g_rms=float(s[3]), dev=_device_for(kind, cfg), bl=bl, cfg=cfg)
+    arr = program_weights(w, kind, cfg, bl, device=dev)
+    _cache.store_arrays(
+        key,
+        {"g_diff": _host_f32(arr.g_diff),
+         "scalars": np.asarray([arr.w_scale, arr.g_fs, arr.att_mean,
+                                arr.g_rms], np.float64)},
+        {"kind": kind, "shape": list(arr.g_diff.shape), "tmr": cfg.tmr,
+         "seed": cfg.seed, "write_ber": cfg.write_ber, "key": key},
+        cache_dir, compress=False)
+    return arr
+
+
+# ---------------------------------------------------------------------------
+# unrolled model forward + interception hooks
+# ---------------------------------------------------------------------------
+def _forward_unrolled(params, cfg: ArchConfig, tokens: torch.Tensor):
+    """Full-sequence logits, layer by layer (decoder-only)."""
+    assert cfg.n_encoder_layers == 0, "analog routing covers decoder-only"
+    x = model_mod._embed(params, cfg, tokens)
+    B, S, _ = x.shape
+    positions = torch.broadcast_to(
+        torch.arange(S, device=x.device)[None], (B, S))
+    for rep in range(cfg.n_pattern_repeats):
+        lp = model_mod.layer_params(params, rep)
+        for i, (mixer, f) in enumerate(cfg.pattern):
+            x, _ = model_mod._run_block(lp[f"pos{i}"], x, cfg, mixer, f,
+                                        positions)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return model_mod._logits(params, cfg, x)
+
+
+def model_forward_logits(params, cfg: ArchConfig, tokens, hook=None):
+    """Unrolled forward; ``hook(x2d, w, tag)`` intercepts every linear
+    (None = the exact forward)."""
+    with torch.no_grad():
+        if hook is None:
+            return _forward_unrolled(params, cfg, tokens)
+        with intercept_linears(hook):
+            return _forward_unrolled(params, cfg, tokens)
+
+
+def analog_model_logits(
+    params, cfg: ArchConfig, tokens,
+    acfg: AnalogConfig = AnalogConfig(),
+    kind: str = "afmtj",
+    mode: str = "fake",              # fake | device | bnn
+    tie: int = 1,
+    cache_dir: Optional[str] = None,
+    device=None,
+) -> torch.Tensor:
+    """Full-sequence logits with every linear routed through the analog
+    MVM, on ``device`` (None = the CUDA device; ``params`` and ``tokens``
+    are moved there)."""
+    dev = resolve_device(device)
+    params = _params_to(params, dev)
+    tokens = torch.as_tensor(tokens).to(dev)
+    if mode == "fake":
+        apply_fet, g_scale = _systematic_g_scale(acfg)
+        use_fail = acfg.write_ber > 0.0
+        use_faults = _fake_faults_mode(acfg)
+        # device constants do not depend on the line length (the FET
+        # series combination has no wire term): one pack for every layer
+        scal = _fake_scalars(kind, acfg, BitlineParams(), g_scale, None, dev)
+
+        def hook(x2, w, tag):
+            return _fake_mvm_body(
+                x2, w, BitlineParams(rows=w.shape[0]), scal,
+                adc_bits=acfg.adc_bits, apply_fet=apply_fet,
+                use_fail=use_fail, ir_drop=acfg.ir_drop, has_imax=False,
+                decode=True, use_faults=use_faults, repair=acfg.repair)
+    elif mode == "bnn":
+        def hook(x2, w, tag):
+            return binary_matmul(x2, w, tie=tie, device=dev)
+    elif mode == "device":
+        def hook(x2, w, tag):
+            arr = program_weights_cached(w, kind, acfg,
+                                         BitlineParams(rows=w.shape[0]),
+                                         cache_dir, device=dev)
+            return analog_matmul(arr, x2)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return model_forward_logits(params, cfg, tokens, hook)
+
+
+def _params_to(params, dev):
+    if torch.is_tensor(params):
+        return params.to(dev)
+    return {k: _params_to(v, dev) for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# accuracy metrics + surfaces
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ModelAccuracyReport:
+    """Model-level accuracy of one analog configuration point."""
+
+    arch: str
+    kind: str
+    mode: str                      # fake | device | bnn
+    adc_bits: int
+    tmr: float
+    corner: str                    # systematic process corner name
+    write_ber: float
+    kl: float                      # mean KL(ref || analog) over positions
+    token_match: float             # greedy-argmax agreement rate
+    ppl_analog: float              # next-token perplexity, analog logits
+    ppl_ref: float                 # next-token perplexity, exact logits
+    batch: int
+    seq_len: int
+    fault_rate: float = 0.0        # headline hard-fault rate (FaultSpec.rate)
+    repair: str = "none"           # repair policy name
+
+
+def logit_metrics(ref_logits, ana_logits, tokens
+                  ) -> Tuple[float, float, float, float]:
+    """(kl, token_match, ppl_analog, ppl_ref) from two (B, S, V) logit sets
+    (tensors or numpy arrays)."""
+    def as_tensor(a):
+        return a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
+
+    ref_logits = as_tensor(ref_logits)
+    dev = ref_logits.device
+    ana_logits = as_tensor(ana_logits).to(dev)
+    tokens = as_tensor(tokens).to(device=dev, dtype=torch.int64)
+    lr = torch.log_softmax(ref_logits.to(_F32), dim=-1)
+    la = torch.log_softmax(ana_logits.to(_F32), dim=-1)
+    p = torch.exp(lr)
+    kl = float(torch.mean(torch.sum(p * (lr - la), dim=-1)))
+    match = float(torch.mean(
+        (torch.argmax(la, dim=-1) == torch.argmax(lr, dim=-1)).to(_F32)))
+
+    def ppl(lp):
+        gold = torch.gather(lp[:, :-1], -1, tokens[:, 1:][..., None])
+        return float(torch.exp(-torch.mean(gold)))
+
+    return kl, match, ppl(la), ppl(lr)
+
+
+def _arch_config(arch: str, smoke: bool) -> ArchConfig:
+    return smoke_config(arch) if smoke else get_arch(arch)
+
+
+def init_model_params(cfg: ArchConfig, seed: int, device):
+    """The study's random model: ``models.model.init_params`` from a
+    ``torch.Generator`` on ``device`` seeded with ``seed``.  The reference
+    draws with ``jax.random``; the tests hand its parameters over by
+    replacing this function."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return model_mod.init_params(cfg, gen, device)
+
+
+def _setup(arch: str, smoke: bool, batch: int, seq_len: int, seed: int,
+           device=None):
+    """(cfg, params, tokens, ref_logits) shared across surface points."""
+    dev = resolve_device(device)
+    cfg = _arch_config(arch, smoke)
+    params = init_model_params(cfg, seed, dev)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq_len))
+                              ).to(dev)
+    ref_logits = model_forward_logits(params, cfg, tokens)
+    return cfg, params, tokens, ref_logits
+
+
+def _corner_spec(corner: str, seed: int) -> Optional[VariationSpec]:
+    if corner in ("", "tt"):
+        # tt is the all-1.0 nominal corner: identical conductances with or
+        # without the FET round trip, so no spec
+        return None
+    return VariationSpec(corners=(PROCESS_CORNERS[corner],), seed=seed)
+
+
+def model_accuracy(
+    arch: str = "qwen2-0.5b",
+    acfg: AnalogConfig = AnalogConfig(),
+    kind: str = "afmtj",
+    mode: str = "fake",
+    corner: str = "tt",
+    batch: int = 2,
+    seq_len: int = 64,
+    seed: int = 0,
+    smoke: bool = True,
+    tie: int = 1,
+    cache_dir: Optional[str] = None,
+    device=None,
+    _setup_state=None,
+) -> ModelAccuracyReport:
+    """One surface point: the forward through the analog path, scored
+    against the exact logits on synthetic token sequences."""
+    dev = resolve_device(device)
+    if _setup_state is None:
+        _setup_state = _setup(arch, smoke, batch, seq_len, seed, dev)
+    cfg, params, tokens, ref_logits = _setup_state
+    spec = _corner_spec(corner, acfg.seed)
+    if spec is not None:
+        acfg = dataclasses.replace(acfg, variation=spec)
+    ana = analog_model_logits(params, cfg, tokens, acfg, kind=kind,
+                              mode=mode, tie=tie, cache_dir=cache_dir,
+                              device=dev)
+    kl, match, ppl_a, ppl_r = logit_metrics(ref_logits, ana, tokens)
+    tmr = acfg.tmr if acfg.tmr is not None else _device_for(kind, acfg).tmr
+    fspec = acfg.faults
+    frate = 0.0 if fspec is None else (fspec.rate or fspec.cell_fault_rate)
+    return ModelAccuracyReport(
+        arch=arch, kind=kind, mode=mode, adc_bits=acfg.adc_bits,
+        tmr=float(tmr), corner=corner, write_ber=acfg.write_ber, kl=kl,
+        token_match=match, ppl_analog=ppl_a, ppl_ref=ppl_r, batch=batch,
+        seq_len=seq_len, fault_rate=float(frate),
+        repair="none" if acfg.repair is None else acfg.repair.name)
+
+
+def model_accuracy_surface(
+    arch: str = "qwen2-0.5b",
+    kind: str = "afmtj",
+    mode: str = "fake",
+    adc_bits: Sequence[int] = (4, 6, 8),
+    tmrs: Sequence[Optional[float]] = (None,),
+    corners: Sequence[str] = ("tt",),
+    write_bers: Sequence[float] = (0.0,),
+    fault_rates: Sequence[float] = (0.0,),
+    repair: Optional[RepairPolicy] = None,
+    batch: int = 2,
+    seq_len: int = 64,
+    seed: int = 0,
+    smoke: bool = True,
+    cache_dir: Optional[str] = None,
+    device=None,
+) -> Tuple[ModelAccuracyReport, ...]:
+    """The model-level accuracy surface: the outer product of the
+    non-ideality axes, model and reference logits set up once."""
+    dev = resolve_device(device)
+    state = _setup(arch, smoke, batch, seq_len, seed, dev)
+    out = []
+    for fr in fault_rates:
+        fspec = None if fr == 0.0 else FaultSpec.at_rate(float(fr), seed=seed)
+        for ber in write_bers:
+            for corner in corners:
+                for tmr in tmrs:
+                    for bits in adc_bits:
+                        acfg = AnalogConfig(
+                            adc_bits=bits, tmr=tmr, write_ber=ber, seed=seed,
+                            faults=fspec,
+                            repair=repair if fspec is not None else None)
+                        out.append(model_accuracy(
+                            arch, acfg, kind=kind, mode=mode, corner=corner,
+                            batch=batch, seq_len=seq_len, seed=seed,
+                            smoke=smoke, cache_dir=cache_dir, device=dev,
+                            _setup_state=state))
+    return tuple(out)
+
+
+def model_degradation_curves(
+    arch: str = "qwen2-0.5b",
+    kind: str = "afmtj",
+    rates: Sequence[float] = (0.0, 1e-3, 3e-3, 1e-2, 3e-2),
+    policies: Sequence[Optional[RepairPolicy]] = (None,
+                                                 hard_faults.REPAIR_SPARE),
+    adc_bits: int = 6,
+    mode: str = "fake",
+    batch: int = 2,
+    seq_len: int = 64,
+    seed: int = 0,
+    smoke: bool = True,
+    cache_dir: Optional[str] = None,
+    device=None,
+) -> Tuple[ModelAccuracyReport, ...]:
+    """Model accuracy vs fault rate x repair policy (DESIGN.md §13); a
+    ``FaultSpec`` at every point, rate 0 included, and defect maps paired
+    across policies by the counter-RNG."""
+    dev = resolve_device(device)
+    state = _setup(arch, smoke, batch, seq_len, seed, dev)
+    out = []
+    for pol in policies:
+        for r in rates:
+            acfg = AnalogConfig(
+                adc_bits=adc_bits, seed=seed,
+                faults=FaultSpec.at_rate(float(r), seed=seed), repair=pol)
+            out.append(model_accuracy(
+                arch, acfg, kind=kind, mode=mode, batch=batch,
+                seq_len=seq_len, seed=seed, smoke=smoke, cache_dir=cache_dir,
+                device=dev, _setup_state=state))
+    return tuple(out)
+
+
+def degradation_knee(reports: Sequence[ModelAccuracyReport],
+                     min_token_match: float = 0.8) -> Dict[str, float]:
+    """Per repair policy, the largest swept fault rate still meeting the
+    token-match bar."""
+    knees: Dict[str, float] = {}
+    for r in reports:
+        knees.setdefault(r.repair, 0.0)
+        if r.token_match >= min_token_match:
+            knees[r.repair] = max(knees[r.repair], r.fault_rate)
+    return knees

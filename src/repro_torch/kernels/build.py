@@ -6,9 +6,11 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared ...
 
 into ``build/repro_torch_kernels/<name>-<hash>.so`` under the repository
-root, keyed by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is not.  The compiler's ``-Xptxas -v`` report
-(registers, spills) is kept beside the library as ``.log``.
+root, keyed by a hash of the flags, the library's own source and the shared
+headers (``csrc/*.cuh``), so an edited source rebuilds its own library and
+no other.  The compiler's ``-Xptxas -v`` report (registers, spills) is kept
+beside the library as ``.log``.  ``build_many`` starts one nvcc per source,
+all together, and waits for all of them.
 """
 from __future__ import annotations
 
@@ -46,33 +48,50 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256()
     for part in (*NVCC_FLAGS, name):
         h.update(part.encode())
-    for p in sorted(CSRC.glob("*.cu*")):      # .cu and shared .cuh headers
+    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def build_many(names) -> dict:
+    """Compile every ``csrc/<name>.cu`` of ``names`` whose library is not
+    built yet, one nvcc process per source, all started together; returns
+    ``{name: seconds}`` (0.0 where there was nothing to do).  Raises with
+    the compiler's output if any nvcc fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    seconds = {name: 0.0 for name in names}
+    running = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists() or name in running:
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, out, tmp)
+    failures = []
+    for name, (proc, out, tmp) in running.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"CUDA build of {name} failed: nvcc exited "
+                            f"{proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
+
+
 def build(name: str) -> float:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the build's seconds (0.0 when there was nothing to do).
-    Raises with the compiler's output if nvcc fails."""
-    out = library_path(name)
-    if out.exists():
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"CUDA build of {name} failed: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, out)
-    return seconds
+    returns the build's seconds (0.0 when there was nothing to do)."""
+    return build_many((name,))[name]
 
 
 def build_log(name: str) -> str:

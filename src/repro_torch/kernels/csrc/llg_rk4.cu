@@ -37,6 +37,10 @@
 //   NSUB = 1: 4 x 57 = 228, 18, 30, 8, noise 33 (the sinf half of each
 //     Box-Muller pair is drawn but unused, so the compiler drops it) = 317,
 //     of them 16 divisions, 4 sqrtf, 3 logf, 3 cosf.
+// The deterministic kernel (THERMAL = false) drops the noise and the three
+// thermal-field adds of each right-hand side (57 -> 54): 540 (NSUB = 2) and
+// 272 (NSUB = 1) float32 operations per lane-step, with the same divisions
+// and only the renormalization's sqrtf (2 and 1): 33 and 17 SFU operations.
 // In the sm_90a SASS each division issues one MUFU.RCP and each sqrtf one
 // MUFU.RSQ on the special-function units; logf, sinf and cosf (libdevice,
 // no fast math) are polynomials on the FP32 pipe and issue no MUFU.  So

@@ -1,11 +1,13 @@
-"""Public entry points of the LLG kernel and the SoA packing helpers
+"""Public entry points of the port's kernels and the SoA packing helpers
 (port of ``repro.kernels.ops``)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.params import DeviceParams
+from repro_torch.kernels.bitline_mac import bitline_mac_kernel
 from repro_torch.kernels.llg_rk4 import CELL_TILE, llg_rk4_kernel
+from repro_torch.kernels.xnor_gemm import xnor_gemm_kernel
 
 
 def llg_rk4(state: torch.Tensor, p: DeviceParams, dt: float, n_steps: int,
@@ -46,3 +48,15 @@ def unpack_states(state: torch.Tensor, cells: int):
     m = torch.stack([state[0:3, :cells].T, state[3:6, :cells].T], dim=1)
     crossing_step = state[7, :cells]
     return m, crossing_step
+
+
+def bitline_mac(v: torch.Tensor, g: torch.Tensor, adc_bits: int = 0,
+                i_max: float = 1.0) -> torch.Tensor:
+    """Bit-line MAC ``v @ g`` through the signed ADC (0 bits = ideal)."""
+    return bitline_mac_kernel(v, g, adc_bits, i_max)
+
+
+def xnor_gemm(a: torch.Tensor, w: torch.Tensor, binarize: bool = False,
+              tie: int = 1) -> torch.Tensor:
+    """+-1 GEMM (= K - 2 popcount(a XOR w)), optionally re-binarized."""
+    return xnor_gemm_kernel(a, w, binarize, tie)

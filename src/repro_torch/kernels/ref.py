@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the LLG campaign kernel.
+"""Plain PyTorch versions of the port's kernels.
 
 ``ref_llg_rk4`` is the port of ``repro.kernels.ref.ref_llg_rk4``: it steps
 the production physics of ``core.llg`` on ``(cells, n_sub, 3)`` tensors,
@@ -13,6 +13,11 @@ run out of budget stops updating.  The reference's oracle instead stops
 only when every lane of the whole block is done, so past a finished group
 its rows 0-5 keep moving; row 7 (first crossing) is the same either way,
 and with a single group the two are identical.
+
+``ref_bitline_mac``, ``ref_xnor_gemm`` and ``ref_fake_analog`` are the plain
+versions of the analog MAC kernels (``csrc/analog_mac.cu``), mirroring the
+reference's jnp oracles: one float32 matmul plus the shared epilogue
+helpers of ``bitline_mac`` / ``xnor_gemm`` / ``fake_analog``.
 """
 from __future__ import annotations
 
@@ -128,3 +133,45 @@ def ref_llg_rk4(
                 m, crossed = step(c * chunk + j, m, crossed, frozen)
     sub2 = m[:, 1, :].T if n_sub == 2 else torch.zeros_like(m[:, 0, :].T)
     return torch.cat([m[:, 0, :].T, sub2, v[None], crossed[None]], dim=0)
+
+
+def ref_bitline_mac(v, g, adc_bits: int = 0, i_max=1.0):
+    from repro_torch.kernels.bitline_mac import adc_quantize
+
+    i_bl = v.to(torch.float32) @ g.to(torch.float32)
+    return adc_quantize(i_bl, adc_bits, i_max)
+
+
+def ref_fake_analog(v, wn, fail, aux, adc_bits: int = 0,
+                    apply_fet: bool = False, use_fail: bool = False):
+    """Plain version of the fused fake-analog MVM: the shared conductance
+    replay (``_tile_g_diff``) over the whole array, one matmul, the shared
+    ADC on the per-column full scale, the decode gain."""
+    from repro_torch.kernels.bitline_mac import adc_quantize
+    from repro_torch.kernels.fake_analog import (ROW_DECODE, ROW_I_MAX,
+                                                 _tile_g_diff)
+
+    f32 = torch.float32
+    aux = aux.to(f32)
+    g_diff = _tile_g_diff(wn.to(f32), fail.to(f32), aux,
+                          apply_fet=apply_fet, use_fail=use_fail)
+    i_bl = v.to(f32) @ g_diff
+    i_max = aux[ROW_I_MAX:ROW_I_MAX + 1, :]
+    return (adc_quantize(i_bl, adc_bits, i_max)
+            * aux[ROW_DECODE:ROW_DECODE + 1, :])
+
+
+def ref_xnor_gemm(a, w, binarize: bool = False, tie: int = 1):
+    from repro_torch.kernels.xnor_gemm import binarize_acc
+
+    out = a.to(torch.float32) @ w.to(torch.float32)
+    if binarize:
+        out = binarize_acc(out, tie)
+    return out
+
+
+def ref_xnor_popcount(a_bits: torch.Tensor, w_bits: torch.Tensor):
+    """Bit-domain identity: a, w in {0, 1}; result == the +-1 dot product."""
+    K = a_bits.shape[-1]
+    xnor = 1 - torch.bitwise_xor(a_bits[:, None, :], w_bits.T[None, :, :])
+    return 2 * xnor.sum(dim=-1) - K

@@ -1,0 +1,164 @@
+"""Grouped-query self-attention over a full sequence (port of the
+full-sequence path of ``repro.models.attention``): QKV projections (with
+bias, per-head q/k RMSNorm, RoPE), the materialized-score path and the
+chunked online-softmax path, and the output projection.
+
+The arithmetic mirrors the reference's jnp step by step (einsums, float32
+scores, additive -1e30 mask, softmax cast back to the compute dtype), so
+the port compares with it operation by operation; it deliberately does
+not call a fused attention operator.  Decode with a KV cache, cross and
+encoder attention wait for ROADMAP A10.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.common import (ParamSpec, apply_rope, linear, rms_norm,
+                                       softcap)
+
+_F32 = torch.float32
+# above this query length the chunked (flash-style) path is used
+CHUNK_THRESHOLD = 2048
+KV_CHUNK = 1024
+
+
+def attn_specs(cfg: ArchConfig, cross: bool = False) -> Dict[str, ParamSpec]:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    sp = {
+        "wq": ParamSpec((d, h * hd), ("embed", "q_proj")),
+        "wk": ParamSpec((d, kv * hd), ("embed", "kv_proj")),
+        "wv": ParamSpec((d, kv * hd), ("embed", "kv_proj")),
+        "wo": ParamSpec((h * hd, d), ("q_proj", "embed")),
+    }
+    if cfg.attn.qkv_bias and not cross:
+        sp["bq"] = ParamSpec((h * hd,), ("q_proj",), "zeros")
+        sp["bk"] = ParamSpec((kv * hd,), ("kv_proj",), "zeros")
+        sp["bv"] = ParamSpec((kv * hd,), ("kv_proj",), "zeros")
+    if cfg.attn.qk_norm:
+        sp["q_norm"] = ParamSpec((hd,), (None,), "zeros")
+        sp["k_norm"] = ParamSpec((hd,), (None,), "zeros")
+    return sp
+
+
+def _project_qkv(p, x, cfg: ArchConfig, positions, rope: bool = True):
+    B, S, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = linear(x, p["wq"].to(x.dtype), "wq")
+    k = linear(x, p["wk"].to(x.dtype), "wk")
+    v = linear(x, p["wv"].to(x.dtype), "wv")
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(B, S, h, hd)
+    k = k.reshape(B, S, kv, hd)
+    v = v.reshape(B, S, kv, hd)
+    if cfg.attn.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if rope:
+        q = apply_rope(q, positions, cfg.attn.rope_theta,
+                       cfg.attn.mrope_sections)
+        k = apply_rope(k, positions, cfg.attn.rope_theta,
+                       cfg.attn.mrope_sections)
+    return q, k, v
+
+
+def _merge_heads(p, o, cfg: ArchConfig):
+    B, S = o.shape[:2]
+    o = o.reshape(B, S, cfg.n_heads * cfg.d_head)
+    return linear(o, p["wo"].to(o.dtype), "wo")
+
+
+def _mask_full(S: int, Skv: int, causal: bool, window: Optional[int],
+               offset: int = 0, device=None) -> torch.Tensor:
+    """(S, Skv) additive float32 mask; ``offset`` = index of query 0 in the
+    kv timeline."""
+    qi = torch.arange(S, device=device)[:, None] + offset
+    ki = torch.arange(Skv, device=device)[None, :]
+    ok = torch.ones((S, Skv), dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (ki <= qi)
+    if window is not None:
+        ok = ok & (ki > qi - window)
+    zero = torch.zeros((), dtype=_F32, device=device)
+    return torch.where(ok, zero, zero - 1e30)
+
+
+def _scale_scores(s: torch.Tensor, hd: int) -> torch.Tensor:
+    return s / torch.tensor(math.sqrt(hd), dtype=_F32, device=s.device)
+
+
+def full_attention(q, k, v, cfg: ArchConfig, causal: bool, window,
+                   offset: int = 0):
+    """Materialized-scores path (seq <= ``CHUNK_THRESHOLD``)."""
+    B, S, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(B, S, kvh, g, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).to(_F32)
+    scores = _scale_scores(scores, hd)
+    scores = softcap(scores, cfg.attn.logit_softcap)
+    scores = scores + _mask_full(S, k.shape[1], causal, window, offset,
+                                 q.device)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return o.reshape(B, S, h, hd)
+
+
+def chunked_attention(q, k, v, cfg: ArchConfig, causal: bool, window,
+                      offset: int = 0):
+    """Flash-style online softmax over ``KV_CHUNK``-long key chunks (no
+    S x Skv score matrix): the reference's scan body as a Python loop."""
+    B, S, h, hd = q.shape
+    kvh = k.shape[2]
+    Skv = k.shape[1]
+    g = h // kvh
+    dev = q.device
+    qg = q.reshape(B, S, kvh, g, hd)
+    n_chunks = (Skv + KV_CHUNK - 1) // KV_CHUNK
+    pad = n_chunks * KV_CHUNK - Skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qi = torch.arange(S, device=dev)[:, None] + offset
+    zero = torch.zeros((), dtype=_F32, device=dev)
+    m = torch.full((B, kvh, g, S), -1e30, dtype=_F32, device=dev)
+    l = torch.zeros((B, kvh, g, S), dtype=_F32, device=dev)
+    acc = torch.zeros((B, kvh, g, S, hd), dtype=_F32, device=dev)
+    for ci in range(n_chunks):
+        kci = k[:, ci * KV_CHUNK:(ci + 1) * KV_CHUNK]
+        vci = v[:, ci * KV_CHUNK:(ci + 1) * KV_CHUNK]
+        ki = ci * KV_CHUNK + torch.arange(KV_CHUNK, device=dev)[None, :]
+        s = torch.einsum("bskgd,btkd->bkgst", qg, kci).to(_F32)
+        s = _scale_scores(s, hd)
+        s = softcap(s, cfg.attn.logit_softcap)
+        ok = ki < Skv
+        if causal:
+            ok = ok & (ki <= qi)
+        if window is not None:
+            ok = ok & (ki > qi - window)
+        s = s + torch.where(ok, zero, zero - 1e30)[None, None, None, :, :]
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        alpha = torch.exp(m - m_new)
+        pexp = torch.exp(s - m_new[..., None])
+        l = l * alpha + torch.sum(pexp, dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", pexp.to(q.dtype), vci).to(_F32)
+        m = m_new
+    o = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, h, hd)
+
+
+def self_attention(p, x, cfg: ArchConfig, positions, mixer: str):
+    """Training/prefill self-attention over the whole sequence."""
+    window = cfg.attn.sliding_window if mixer == "attn_local" else None
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    S = x.shape[1]
+    fn = chunked_attention if S > CHUNK_THRESHOLD else full_attention
+    o = fn(q, k, v, cfg, causal=True, window=window)
+    return _merge_heads(p, o, cfg)

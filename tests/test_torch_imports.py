@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, every module imports
-with JAX blocked, and no entry point carries on on the CPU unless asked."""
+``chip_smoke.py``, nor the port's example) imports JAX or the JAX package,
+every module imports with JAX blocked, and no entry point carries on on the
+CPU unless asked."""
 import ast
 import os
 import subprocess
@@ -26,7 +27,8 @@ def _port_modules():
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "torch_model_accuracy_study.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
@@ -49,7 +51,14 @@ def test_no_jax_or_reference_imports(path):
 
 def test_every_module_imports_with_jax_blocked():
     mods = _port_modules()
-    assert len(mods) >= 25, mods
+    assert len(mods) >= 45, mods
+    for m in ("repro_torch.configs.registry", "repro_torch.models.model",
+              "repro_torch.models.attention", "repro_torch.imc.faults",
+              "repro_torch.imc.analog_pipeline", "repro_torch.imc.mapping",
+              "repro_torch.imc.model_analog", "repro_torch.kernels.bitline_mac",
+              "repro_torch.kernels.xnor_gemm",
+              "repro_torch.kernels.fake_analog"):
+        assert m in mods, m
     code = (
         "import sys\n"
         "for name in ('jax', 'jax.numpy', 'jaxlib', 'repro'):\n"
@@ -99,13 +108,49 @@ def _entry_points():
         "make_subarray": lambda: make_subarray("afmtj"),
         "build_hierarchy": lambda: build_hierarchy("afmtj"),
         "evaluate_system": lambda: evaluate_system("afmtj"),
+        **_analog_entry_points(),
+    }
+
+
+def _analog_entry_points():
+    import numpy as np
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.imc import analog_pipeline as ap
+    from repro_torch.imc import mapping, model_analog as ma
+
+    w = np.ones((8, 4), np.float32)
+    x = np.ones((2, 8), np.float32)
+    cfg = smoke_config("qwen2-0.5b")
+    params = ma.init_model_params(cfg, 0, "cpu")
+    tokens = torch.zeros(1, 4, dtype=torch.int64)
+    return {
+        "program_weights": lambda: ap.program_weights(w),
+        "binary_matmul": lambda: ap.binary_matmul(x, w),
+        "mvm_accuracy": lambda: ap.mvm_accuracy(w, x),
+        "fake_analog_matmul": lambda: ma.fake_analog_matmul(w, x),
+        "program_weights_cached": lambda: ma.program_weights_cached(w),
+        "analog_model_logits": lambda: ma.analog_model_logits(params, cfg,
+                                                              tokens),
+        "model_accuracy": lambda: ma.model_accuracy(batch=1, seq_len=4),
+        "model_accuracy_surface": lambda: ma.model_accuracy_surface(
+            batch=1, seq_len=4),
+        "model_degradation_curves": lambda: ma.model_degradation_curves(
+            batch=1, seq_len=4),
+        "decode_projection_accuracy": lambda: mapping.decode_projection_accuracy(
+            cfg),
+        "accuracy_surface": lambda: mapping.accuracy_surface(cfg),
     }
 
 
 @pytest.mark.parametrize("name", sorted([
     "run_ensemble", "run_campaign", "wer_margined_pulse", "write_verify",
     "write_verify_nominal", "measured_write_timings", "simulate_write",
-    "make_subarray", "build_hierarchy", "evaluate_system"]))
+    "make_subarray", "build_hierarchy", "evaluate_system",
+    "program_weights", "binary_matmul", "mvm_accuracy", "fake_analog_matmul",
+    "program_weights_cached", "analog_model_logits", "model_accuracy",
+    "model_accuracy_surface", "model_degradation_curves",
+    "decode_projection_accuracy", "accuracy_surface"]))
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default is valid")
