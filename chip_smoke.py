@@ -6,8 +6,9 @@
 Phases (any failure raises and the script exits non-zero):
 
 0. Print the card (``nvidia-smi`` name and power limit), PyTorch and CUDA
-   versions; build ``src/repro_torch/kernels/csrc/llg_rk4.cu`` and
-   ``analog_mac.cu`` with one nvcc each, started together; TF32 off.
+   versions; build ``src/repro_torch/kernels/csrc/llg_rk4.cu``,
+   ``analog_mac.cu`` and ``xnor_gemm.cu`` with one nvcc each, started
+   together; TF32 off.
 1. The LLG kernel against its plain PyTorch version on the card, on the
    same inputs: deterministic and thermal, chunk 0 and 64, ragged step
    budgets, two Brown sigmas, single-sublattice (MTJ) and variation rows.
@@ -29,16 +30,22 @@ Phases (any failure raises and the script exits non-zero):
    kinds.
 
 5. Analog MVM and model-level accuracy (kernels of
-   ``src/repro_torch/kernels/csrc/analog_mac.cu``):
+   ``src/repro_torch/kernels/csrc/analog_mac.cu`` and ``xnor_gemm.cu``):
    a. the bit-line MAC (B3), XNOR GEMM (B4) and fake-analog MVM (B5)
       kernels against their plain versions on the card, at the reference
       tests' odd shapes and at every full-width launch shape of qwen2-0.5b
       (M = 128 = batch 2 x seq 64; (K, N) = (896, 896) wq/wo, (896, 128)
       wk/wv, (896, 4864) w_gate/w_up, (4864, 896) w_down, (896, 151,936)
-      unembed), on the operands the path builds; each timed with CUDA
-      events beside its plain version, its bound and the one PyTorch call
-      computing the same function (``torch.matmul``, beside B3 without its
-      ADC and B4 without binarize; none for B5).
+      unembed), on the operands the path builds; each timed beside its
+      plain version, its bound and the one PyTorch call computing the same
+      function (``torch.matmul``, beside B3 without its ADC and B4 without
+      binarize; none for B5).  ``ms`` (kernel) and ``library_ms``
+      (``torch.matmul``) are eager: the mean of 10 back-to-back calls after
+      a warm one, CUDA events around them, host dispatch included (as the
+      model's eager forwards pay it); ``ms_device`` / ``library_ms_device``
+      are device times of the same calls replayed from one CUDA graph;
+      ``host_us`` is the host's cost of enqueueing one call.  B4 is timed
+      with float32 and bfloat16 operands.
       Bounds: B3 rtol 1e-5 / atol 1e-8 without ADC, at most 1 LSB on under
       1% of elements with it; B4 exact; B5 rtol 1e-6 / atol 1e-6 x decode
       or at most 1 LSB on under 1%; B5's raw currents bit-equal to B3's on
@@ -50,10 +57,15 @@ Phases (any failure raises and the script exits non-zero):
       Fails unless fake vs device gives KL < 1e-4 with token match 1.0,
       the second device call is bit-identical, KL falls with adc bits, and
       every kernel launched 169 times per forward (24 x 7 linears plus the
-      unembed).
+      unembed).  Each kernel's time per forward is then its launches per
+      forward at each shape, as counted in this run, times that shape's
+      time from 5a, summed, eager and device, beside the same sum for
+      ``torch.matmul``.
 
 Each kernel's launch counter is set to 0 before its main-path run (phases
-2-3 for the LLG kernel, 5b for the analog kernels) and read after it; the
+2-3 for the LLG kernel, 5b for the analog kernels) and read after it (the
+analog wrappers count their mainloop launches under ``launches``, and the
+split-K reduce pass a split call adds under ``reduce_launches``); the
 second-to-last line is the per-kernel JSON record and the last line
 ``{"ok": true, "device": {...}}``.  Campaign caching is off
 (``use_cache=False``, and a fresh empty cache directory for the calls that
@@ -94,6 +106,7 @@ OPS_PER_LANE_STEP_DET = {2: (540, 33), 1: (272, 17)}
 H100_FP32_OPS_S = 67e12        # NVIDIA data sheet, H100 SXM, 700 W
 H100_SFU_OPS_S = 132 * 16 * 1.98e9   # 16 SFU lanes / SM / clock, boost clock
 H100_HBM_BYTES_S = 3.35e12     # NVIDIA data sheet, H100 SXM, HBM3
+H100_INT8_OPS_S = 1979e12      # NVIDIA data sheet, H100 SXM, int8 dense
 
 # Phase 5: qwen2-0.5b's linears at batch 2 x seq 64 (M = 128 rows)
 QWEN_M = 128
@@ -102,6 +115,9 @@ QWEN_SHAPES = [(896, 896, "wq/wo"), (896, 128, "wk/wv"),
                (896, 151936, "unembed")]
 ODD_SHAPES = [(3, 200, 77), (65, 130, 190), (1, 1, 1), (129, 127, 128)]
 LINEARS_PER_FORWARD = 24 * 7 + 1
+# forwards each analog kernel runs in phase 5b: fake (adc 4, 6, 8 and adc 8
+# again), device (twice, through the programming cache), bnn
+FORWARDS = {"fake_analog": 4, "bitline_mac": 2, "xnor_gemm": 1}
 # float32 operations per element outside the product (counted from
 # csrc/analog_mac.cu): the ADC epilogue (divide, clip x2, multiply, round,
 # divide, multiply) and B5's decode multiply per output; B5's conductance
@@ -428,10 +444,56 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def gemm_bound(m: int, k: int, n: int, extra_ops: int, n_bytes: int):
+def graph_ms(torch, fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` back-to-back calls
+    captured in one CUDA graph (no host dispatch between launches), timed
+    with CUDA events around its replay after a warm replay."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / reps
+    del graph
+    return ms
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn()``: the best of three loops of
+    ``calls`` calls with no synchronization inside (the cost of enqueueing
+    one call; where the device is the slower, the launch queue fills and
+    this reads device time instead)."""
+    fn()
+    best = math.inf
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * best / calls
+
+
+def gemm_bound(m: int, k: int, n: int, extra_ops: int, n_bytes: int,
+               ops_s: float = H100_FP32_OPS_S):
     """(least ms, 'operations' or 'bytes') for an (m, k) @ (k, n) product
-    plus ``extra_ops`` float32 operations moving ``n_bytes``."""
-    t_ops = (2 * m * k * n + extra_ops) / H100_FP32_OPS_S
+    plus ``extra_ops`` operations at ``ops_s`` moving ``n_bytes``."""
+    t_ops = (2 * m * k * n + extra_ops) / ops_s
     t_bytes = n_bytes / H100_HBM_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -494,10 +556,15 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
                                 ref.ref_bitline_mac(v, g, 8, i_max),
                                 f"bitline_mac adc 8 {tag}", 1e-5, 1e-8, lsb))
 
-    # B4 on the bnn path's operands, exact
+    # B4 on the bnn path's operands, exact; and with a tenth of them 0
+    # (the operand contract is {-1, 0, +1})
     xb, wb = binarize_acc(x, 1), binarize_acc(w, 1)
+    xz = torch.where(torch.rand(m, k, generator=gen, device=dev) < 0.1, 0.0, xb)
+    wz = torch.where(torch.rand(k, n, generator=gen, device=dev) < 0.1, 0.0, wb)
     for a_, w_, binarize, tie in ((xb, wb, False, 1), (xb, wb, True, -1),
-                                  (xb.bfloat16(), wb.bfloat16(), False, 1)):
+                                  (xb.bfloat16(), wb.bfloat16(), False, 1),
+                                  (xz, wz, True, 1), (xz, wz, False, 1),
+                                  (xz.bfloat16(), wz.bfloat16(), True, -1)):
         if not torch.equal(xnor_gemm_kernel(a_, w_, binarize, tie),
                            ref.ref_xnor_gemm(a_, w_, binarize, tie)):
             raise AssertionError(f"xnor_gemm {a_.dtype} binarize={binarize} "
@@ -540,6 +607,7 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
     if not torch.equal(raw5, raw3):
         raise AssertionError(f"{tag}: fake_analog raw currents differ from "
                              f"bitline_mac's on the same g_diff")
+    del xz, wz
     log(f"  {tag}: bitline_mac max|d| {err3:.3e}, xnor exact, fake_analog "
         f"max|d| {err5:.3e}, raw currents bit-equal")
     rec.update(bitline_mac_err=err3, fake_analog_err=err5)
@@ -549,36 +617,107 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
     f4 = 4
     ops_p, fk_p = fake_ops["path"]
     reps = 10
+    xh, wh = xb.bfloat16(), wb.bfloat16()
     b3_bound = gemm_bound(m, k, n, ADC_OPS * m * n, f4 * (m * k + k * n + m * n))
-    b4_bound = gemm_bound(m, k, n, 0, f4 * (m * k + k * n + m * n))
     b5_bound = gemm_bound(m, k, n, REPLAY_OPS * k * n + (ADC_OPS + 1) * m * n,
                           f4 * (m * k + k * n + 4 * n + m * n))
+
+    def b4_bound(elt: int):
+        # +-1 operands: int8 tensor-core rate; bytes in the arriving dtype
+        return gemm_bound(m, k, n, 0, elt * (m * k + k * n) + f4 * m * n,
+                          H100_INT8_OPS_S)
+
+    def both(key, fn):
+        """{key: eager ms, key_device: graph-replayed device ms} of fn."""
+        return {key: time_ms(torch, fn, reps),
+                f"{key}_device": graph_ms(torch, fn, reps)}
+
+    host = {"bitline_mac": lambda: bitline_mac_kernel(v, g, 8, i_max),
+            "xnor_gemm": lambda: xnor_gemm_kernel(xb, wb),
+            "fake_analog": lambda: fake_analog_kernel(*ops_p, **fk_p),
+            "torch.matmul": lambda: torch.matmul(v, g)}
+    rec["host_us"] = {name: host_us(torch, fn) for name, fn in host.items()}
+
     rec["bitline_mac"] = dict(
-        ms=time_ms(torch, lambda: bitline_mac_kernel(v, g, 8, i_max), reps),
-        ms_adc0=time_ms(torch, lambda: bitline_mac_kernel(v, g, 0, i_max),
-                        reps),
+        **both("ms", lambda: bitline_mac_kernel(v, g, 8, i_max)),
+        **both("ms_adc0", lambda: bitline_mac_kernel(v, g, 0, i_max)),
         plain_ms=time_ms(torch, lambda: ref.ref_bitline_mac(v, g, 8, i_max), 3),
-        library_ms=time_ms(torch, lambda: torch.matmul(v, g), reps),
+        **both("library_ms", lambda: torch.matmul(v, g)),
         bound_ms=b3_bound[0], bound_by=b3_bound[1])
     rec["xnor_gemm"] = dict(
-        ms=time_ms(torch, lambda: xnor_gemm_kernel(xb, wb), reps),
+        **both("ms", lambda: xnor_gemm_kernel(xb, wb)),
+        **both("ms_bf16", lambda: xnor_gemm_kernel(xh, wh)),
         plain_ms=time_ms(torch, lambda: ref.ref_xnor_gemm(xb, wb), 3),
-        library_ms=time_ms(torch, lambda: torch.matmul(xb, wb), reps),
-        bound_ms=b4_bound[0], bound_by=b4_bound[1])
+        **both("library_ms", lambda: torch.matmul(xb, wb)),
+        **both("library_ms_bf16", lambda: torch.matmul(xh, wh)),
+        bound_ms=b4_bound(4)[0], bound_by=b4_bound(4)[1],
+        bound_ms_bf16=b4_bound(2)[0], bound_by_bf16=b4_bound(2)[1])
     rec["fake_analog"] = dict(
-        ms=time_ms(torch, lambda: fake_analog_kernel(*ops_p, **fk_p), reps),
+        **both("ms", lambda: fake_analog_kernel(*ops_p, **fk_p)),
         plain_ms=time_ms(torch, lambda: ref.ref_fake_analog(*ops_p, **fk_p), 3),
-        library_ms=None, bound_ms=b5_bound[0], bound_by=b5_bound[1])
+        library_ms=None, library_ms_device=None,
+        bound_ms=b5_bound[0], bound_by=b5_bound[1])
     for name in ("bitline_mac", "xnor_gemm", "fake_analog"):
         r = rec[name]
-        lib = ("" if r["library_ms"] is None
-               else f", torch.matmul {r['library_ms']:.4f} ms")
+        lib = ("" if r["library_ms"] is None else
+               f", torch.matmul {r['library_ms']:.4f} ms (device "
+               f"{r['library_ms_device']:.4f})")
         if "ms_adc0" in r:
-            lib += f" (kernel without ADC {r['ms_adc0']:.4f} ms)"
-        log(f"    {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-            f"ms{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{100 * r['bound_ms'] / r['ms']:.1f}% of it")
+            lib += (f"; kernel without ADC {r['ms_adc0']:.4f} ms (device "
+                    f"{r['ms_adc0_device']:.4f})")
+        log(f"    {name}: kernel {r['ms']:.4f} ms (device "
+            f"{r['ms_device']:.4f}), plain {r['plain_ms']:.4f} ms{lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), device time "
+            f"{100 * r['bound_ms'] / r['ms_device']:.1f}% of it")
+    log("    host us per call: " + ", ".join(
+        f"{name} {us:.1f}" for name, us in rec["host_us"].items()))
+    r = rec["xnor_gemm"]
+    log(f"    xnor_gemm bfloat16: kernel {r['ms_bf16']:.4f} ms (device "
+        f"{r['ms_bf16_device']:.4f}), torch.matmul (bf16 out) "
+        f"{r['library_ms_bf16']:.4f} ms (device "
+        f"{r['library_ms_bf16_device']:.4f}), bound "
+        f"{r['bound_ms_bf16']:.4f} ms ({r['bound_by_bf16']}), device time "
+        f"{100 * r['bound_ms_bf16'] / r['ms_bf16_device']:.1f}% of it")
     return rec
+
+
+def per_forward(shapes: list, path: dict) -> dict:
+    """Milliseconds per qwen2-0.5b forward: each shape's time (phase 5a)
+    times the launches per forward at that shape counted in phase 5b,
+    summed, for every kernel variant and its ``torch.matmul`` yardstick,
+    eager and device."""
+    keys = {"bitline_mac adc 8": ("bitline_mac", "ms"),
+            "bitline_mac adc 0": ("bitline_mac", "ms_adc0"),
+            "torch.matmul float32": ("bitline_mac", "library_ms"),
+            "xnor_gemm float32": ("xnor_gemm", "ms"),
+            "xnor_gemm bfloat16": ("xnor_gemm", "ms_bf16"),
+            "torch.matmul +-1 float32": ("xnor_gemm", "library_ms"),
+            "fake_analog adc 8": ("fake_analog", "ms"),
+            "bitline_mac bound": ("bitline_mac", "bound_ms"),
+            "xnor_gemm float32 bound": ("xnor_gemm", "bound_ms"),
+            "fake_analog bound": ("fake_analog", "bound_ms")}
+    timed = {tuple(x["shape"]): x for x in shapes}
+    per_shape = {}
+    for name, n_fwd in FORWARDS.items():
+        counts = path["launch_shapes"][name]
+        if set(counts) - set(timed):
+            raise AssertionError(f"{name} launched at shapes phase 5a did not "
+                                 f"time: {sorted(set(counts) - set(timed))}")
+        if any(c % n_fwd for c in counts.values()):
+            raise AssertionError(f"{name}: launches {dict(counts)} are not "
+                                 f"{n_fwd} equal forwards")
+        per_shape[name] = {s: c // n_fwd for s, c in counts.items()}
+    out = {}
+    for suffix in ("", "_device"):
+        out["eager" if not suffix else "device"] = {
+            label: sum(timed[s][name][key + ("" if key == "bound_ms" else
+                                             suffix)] * c
+                       for s, c in per_shape[name].items())
+            for label, (name, key) in keys.items()}
+    out["launches_per_forward"] = {
+        name: {"x".join(map(str, s)): c for s, c in sorted(d.items())}
+        for name, d in per_shape.items()}
+    return out
 
 
 def phase5_hold(torch, dev) -> list:
@@ -590,12 +729,21 @@ def phase5_hold(torch, dev) -> list:
             for k, n, what in QWEN_SHAPES]
 
 
+def log_per_forward(fwd: dict) -> None:
+    log("  kernel time per forward (launches per shape counted in phase 5b; "
+        "eager, device):")
+    for label, ms in fwd["eager"].items():
+        log(f"    {label}: {ms:.3f} ms, {fwd['device'][label]:.3f} ms")
+    log(f"    launches per forward by shape: {fwd['launches_per_forward']}")
+
+
 def phase5_path(torch, dev) -> dict:
     """The model-level analog accuracy path at full width, through its
     entry points; the analog kernels' counters are set to 0 just before and
     read just after."""
     from repro_torch.imc import model_analog as ma
     from repro_torch.imc.analog_pipeline import AnalogConfig
+    from repro_torch.kernels import analog_mac
     from repro_torch.kernels.bitline_mac import bitline_mac_kernel
     from repro_torch.kernels.fake_analog import fake_analog_kernel
     from repro_torch.kernels.xnor_gemm import xnor_gemm_kernel
@@ -609,8 +757,7 @@ def phase5_path(torch, dev) -> dict:
                "fake_analog": fake_analog_kernel}
     cache_dir = ROOT / "build" / "smoke-programming-cache"
     shutil.rmtree(cache_dir, ignore_errors=True)
-    for kern in kernels.values():
-        kern.launches = 0
+    analog_mac.reset_counts(*kernels.values())
     walls = {}
 
     def timed(name, fn):
@@ -640,6 +787,10 @@ def phase5_path(torch, dev) -> dict:
     bnn = timed("bnn", lambda: ma.model_accuracy(
         "qwen2-0.5b", AnalogConfig(), mode="bnn", _setup_state=state, **kw))
     launches = {name: kern.launches for name, kern in kernels.items()}
+    reduce_launches = {name: kern.reduce_launches
+                       for name, kern in kernels.items()}
+    launch_shapes = {name: dict(kern.launch_shapes)
+                     for name, kern in kernels.items()}
     cache_bytes = sum(f.stat().st_size for f in cache_dir.glob("*.npz"))
     shutil.rmtree(cache_dir, ignore_errors=True)
 
@@ -662,7 +813,8 @@ def phase5_path(torch, dev) -> dict:
         f"call bit-identical: {same}")
     for name, sec in walls.items():
         log(f"  wall {name}: {sec:.2f} s")
-    log(f"  launches: {launches}")
+    log(f"  launches: {launches}; of which split K (+1 reduce-pass launch "
+        f"each): {reduce_launches}")
     kl = {r.adc_bits: r.kl for r in surf}
     for y in (y_dev, y_fake):
         if tuple(y.shape) != want or not torch.isfinite(y).all():
@@ -674,12 +826,11 @@ def phase5_path(torch, dev) -> dict:
                              "not bit-identical")
     if not kl[4] > kl[6] > kl[8]:
         raise AssertionError(f"KL not monotone in adc bits: {kl}")
-    expect = {"fake_analog": 4 * LINEARS_PER_FORWARD,
-              "bitline_mac": 2 * LINEARS_PER_FORWARD,
-              "xnor_gemm": LINEARS_PER_FORWARD}
+    expect = {name: n * LINEARS_PER_FORWARD for name, n in FORWARDS.items()}
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
-    return dict(launches=launches, walls=walls, kl=kl, kl_device=kl_d,
+    return dict(launches=launches, reduce_launches=reduce_launches,
+                launch_shapes=launch_shapes, walls=walls, kl=kl, kl_device=kl_d,
                 match_device=match_d, kl_bnn=bnn.kl, kl_fake_vs_device=kl_fd,
                 cache_bytes=cache_bytes,
                 ppl=dict(exact=ppl_r, device=ppl_d, bnn=bnn.ppl_analog),
@@ -702,7 +853,7 @@ def main() -> int:
     log(f"phase 0: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_build = build.build_many(("llg_rk4", "analog_mac"))
+    t_build = build.build_many(("llg_rk4", "analog_mac", "xnor_gemm"))
     for name, sec in t_build.items():
         log(f"  nvcc build of {name}.cu: {sec:.1f} s" if sec else
             f"  {name}.cu already built")
@@ -725,12 +876,17 @@ def main() -> int:
     m = shapes[0]
     analog_shapes = phase5_hold(torch, dev)
     path = phase5_path(torch, dev)
+    per_fwd = per_forward(analog_shapes, path)
+    log_per_forward(per_fwd)
 
     record = {"kernels": [{
         "name": "llg_rk4",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/llg_rk4.cu",
         "replaces": "src/repro/kernels/llg_rk4.py:318",
+        # B2, the deterministic _llg_kernel, is the same kernel with
+        # THERMAL = false (phase 1 holds and times it; not on the main path)
+        "also_replaces": "src/repro/kernels/llg_rk4.py:287",
         "launches": main_launches,
         "max_abs_err": max(x["max_abs_err"] for x in shapes),
         "ms": m["ms"],
@@ -750,27 +906,40 @@ def main() -> int:
                 "fake_analog": "src/repro/kernels/fake_analog.py:174"}
     errs = {"bitline_mac": "bitline_mac_err", "xnor_gemm": None,
             "fake_analog": "fake_analog_err"}
+    sources = {"bitline_mac": "analog_mac.cu", "xnor_gemm": "xnor_gemm.cu",
+               "fake_analog": "analog_mac.cu"}
     widest = analog_shapes[-1]
     for name, line in replaces.items():
         r = widest[name]
         record["kernels"].append({
             "name": name,
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/analog_mac.cu",
+            "source": f"src/repro_torch/kernels/csrc/{sources[name]}",
             "replaces": line,
             "launches": path["launches"][name],
+            # calls that split K also launch the source's reduce_kernel
+            "reduce_launches": path["reduce_launches"][name],
             "max_abs_err": (0.0 if errs[name] is None else
                             max(x[errs[name]] for x in analog_shapes)),
             "ms": r["ms"],
+            "ms_device": r["ms_device"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "library_ms_device": r["library_ms_device"],
             "shape": "128 x 896 @ 896 x 151936 (unembed)",
-            "main_path_shapes": [dict(x[name], shape=x["shape"],
-                                      what=x["what"]) for x in analog_shapes],
+            "main_path_shapes": [dict(
+                x[name], shape=x["shape"], what=x["what"],
+                host_us=x["host_us"][name],
+                library_host_us=(None if r["library_ms"] is None else
+                                 x["host_us"]["torch.matmul"]))
+                for x in analog_shapes],
         })
-    record["model_path"] = {k: v for k, v in path.items() if k != "launches"}
+    record["model_path"] = {k: v for k, v in path.items()
+                            if k not in ("launches", "reduce_launches",
+                                         "launch_shapes")}
+    record["analog_ms_per_forward"] = per_fwd
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps(record), flush=True)

@@ -10,8 +10,14 @@ column current over [-i_max, +i_max] with 2^(bits-1)-1 levels per side.
 
 * a CPU tensor runs the plain PyTorch version ``ref.ref_bitline_mac``;
 * a CUDA tensor launches the kernel on the current stream, or raises.
+  Grids under one wave split K (``analog_mac.split_count``): the call then
+  launches the mainloop and a second kernel, the reduce pass, that adds the
+  partials in split order and applies the ADC.
 
-``bitline_mac_kernel.launches`` counts kernel launches only.
+``bitline_mac_kernel.launches`` counts mainloop launches,
+``.reduce_launches`` reduce-pass launches and ``.launch_shapes`` mainloop
+launches by (M, K, N) (``analog_mac`` module note); CPU calls count
+nothing.
 """
 from __future__ import annotations
 
@@ -45,19 +51,20 @@ def bitline_mac_kernel(v: torch.Tensor, g: torch.Tensor, adc_bits: int = 0,
     output (signature of the reference's ``bitline_mac_pallas``)."""
     M, K, N = analog_mac.gemm_shapes("bitline_mac", v, g)
     assert adc_bits == 0 or adc_bits >= 2, adc_bits
-    if v.device.type == "cpu":
+    if v.is_cpu:
         return ref_bitline_mac(v, g, adc_bits, i_max)
-    analog_mac.check_cuda("bitline_mac", v, g)
+    index = analog_mac.cuda_index("bitline_mac", v, g)
     v, g = analog_mac.f32(v), analog_mac.f32(g)
     out = torch.empty((M, N), dtype=torch.float32, device=v.device)
     if M and N:
-        with torch.cuda.device(v.device):
-            lib = analog_mac.library()
-            analog_mac.launch("bitline_mac", lib.bitline_mac_launch,
-                              v.data_ptr(), g.data_ptr(), out.data_ptr(),
-                              M, K, N, int(adc_bits), float(i_max))
-        bitline_mac_kernel.launches += 1
+        lib, splits, ws = analog_mac.plan("analog_mac", M, K, N, v)
+        vec = N % 4 == 0 and analog_mac.aligned(g)
+        analog_mac.launch("bitline_mac", lib.bitline_mac_launch, index,
+                          v.data_ptr(), g.data_ptr(), out.data_ptr(),
+                          analog_mac.ptr(ws), M, K, N, splits, int(vec),
+                          int(adc_bits), float(i_max))
+        analog_mac.count(bitline_mac_kernel, M, K, N, splits)
     return out
 
 
-bitline_mac_kernel.launches = 0
+analog_mac.reset_counts(bitline_mac_kernel)

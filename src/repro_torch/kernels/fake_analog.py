@@ -10,9 +10,13 @@ ADC on the per-column full scale and the decode gain.  Scalars ride an
 (8, N) aux plane (``ROW_*``).
 
 ``fake_analog_kernel`` wraps the CUDA kernel in ``csrc/analog_mac.cu``
-(replaces the Pallas ``_fake_kernel``): CPU tensors run the plain version
+(replaces the Pallas ``_fake_kernel``; it shares the bit-line MAC's mainloop
+and split-K rule): CPU tensors run the plain version
 ``ref.ref_fake_analog``, CUDA tensors launch the kernel or raise.
-``fake_analog_kernel.launches`` counts kernel launches only.
+``fake_analog_kernel.launches`` counts mainloop launches,
+``.reduce_launches`` reduce-pass launches (calls that split K) and
+``.launch_shapes`` mainloop launches by (M, K, N) (``analog_mac`` module
+note).
 """
 from __future__ import annotations
 
@@ -111,22 +115,24 @@ def fake_analog_kernel(v: torch.Tensor, wn: torch.Tensor, fail: torch.Tensor,
                          f"wn {tuple(wn.shape)}, aux must be ({AUX_ROWS}, "
                          f"{N}), got {tuple(aux.shape)}")
     assert adc_bits == 0 or adc_bits >= 2, adc_bits
-    if v.device.type == "cpu":
+    if v.is_cpu:
         return ref_fake_analog(v, wn, fail, aux, adc_bits, apply_fet,
                                use_fail)
-    analog_mac.check_cuda("fake_analog", v, wn, fail, aux)
+    index = analog_mac.cuda_index("fake_analog", v, wn, fail, aux)
     v, wn, fail, aux = (analog_mac.f32(t) for t in (v, wn, fail, aux))
     out = torch.empty((M, N), dtype=torch.float32, device=v.device)
     if M and N:
-        with torch.cuda.device(v.device):
-            lib = analog_mac.library()
-            analog_mac.launch("fake_analog", lib.fake_analog_launch,
-                              v.data_ptr(), wn.data_ptr(), fail.data_ptr(),
-                              aux.data_ptr(), out.data_ptr(), M, K, N,
-                              int(adc_bits), int(bool(apply_fet)),
-                              int(bool(use_fail)))
-        fake_analog_kernel.launches += 1
+        # the bit-line MAC's tile and split rule: same chunks, same order
+        lib, splits, ws = analog_mac.plan("analog_mac", M, K, N, v)
+        vec = N % 4 == 0 and analog_mac.aligned(wn, fail)
+        analog_mac.launch("fake_analog", lib.fake_analog_launch, index,
+                          v.data_ptr(), wn.data_ptr(), fail.data_ptr(),
+                          aux.data_ptr(), out.data_ptr(),
+                          analog_mac.ptr(ws), M, K, N, splits, int(vec),
+                          int(adc_bits), int(bool(apply_fet)),
+                          int(bool(use_fail)))
+        analog_mac.count(fake_analog_kernel, M, K, N, splits)
     return out
 
 
-fake_analog_kernel.launches = 0
+analog_mac.reset_counts(fake_analog_kernel)

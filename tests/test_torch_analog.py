@@ -98,8 +98,14 @@ def test_bitline_mac_plain_matches_reference(shape, adc_bits):
         assert (diff > lsb * 1e-3).mean() < 0.01
 
 
-@pytest.mark.parametrize("shape", [(3, 200, 77), (65, 130, 190), (1, 1, 1),
-                                   (129, 127, 128)])
+# the reference tests' odd shapes, then the split-K edges of the CUDA
+# kernels: K below the unclamped split x BK, K not a multiple of the stage
+# depth, M = 1 with a deep split
+EDGE_SHAPES = [(3, 200, 77), (65, 130, 190), (1, 1, 1), (129, 127, 128),
+               (1, 20, 77), (2, 100, 190), (1, 600, 96)]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
 def test_bitline_mac_odd_shapes(shape):
     m, k, n = shape
     rng = np.random.default_rng(1)
@@ -132,13 +138,19 @@ def test_adc_signed_and_symmetric():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(128, 128, 128), (128, 512, 256),
-                                   (3, 200, 77), (130, 190, 65)])
+                                   (3, 200, 77), (130, 190, 65),
+                                   *EDGE_SHAPES[4:]])
 @pytest.mark.parametrize("binarize", [False, True])
-def test_xnor_gemm_exact(shape, dtype, binarize):
+@pytest.mark.parametrize("zeros", [0.0, 0.1])
+def test_xnor_gemm_exact(shape, dtype, binarize, zeros):
+    """+-1 operands, and with a share of 0 (the operand contract is
+    {-1, 0, +1}); exact."""
     m, k, n = shape
     rng = np.random.default_rng(3)
     a = np.sign(rng.standard_normal((m, k))).astype(np.float32)
     w = np.sign(rng.standard_normal((k, n))).astype(np.float32)
+    a[rng.uniform(size=a.shape) < zeros] = 0.0
+    w[rng.uniform(size=w.shape) < zeros] = 0.0
     tdt = getattr(torch, dtype)
     out_t = _np(ops.xnor_gemm(_t(a).to(tdt), _t(w).to(tdt), binarize))
     out_r = np.asarray(jref.ref_xnor_gemm(
@@ -173,9 +185,9 @@ def test_xnor_popcount_identity():
 
 # --- B5: fake-analog MVM ------------------------------------------------------
 
-def _fake_operands(seed, max_code):
+def _fake_operands(seed, max_code, shape=(5, 150, 70)):
     rng = np.random.default_rng(seed)
-    m, k, n = 5, 150, 70
+    m, k, n = shape
     v = (rng.standard_normal((m, k)) * 0.1).astype(np.float32)
     wn = np.tanh(rng.standard_normal((k, n))).astype(np.float32)
     fail = rng.integers(0, max_code + 1, (k, n)).astype(np.float32)
@@ -194,17 +206,18 @@ def _fake_operands(seed, max_code):
 @pytest.mark.parametrize("max_code", [3, tfa.FAIL_CODE_MAX])
 @pytest.mark.parametrize("flags", [(True, True), (False, True), (True, False),
                                    (False, False)])
-def test_fake_analog_plain_matches_reference(max_code, flags):
+@pytest.mark.parametrize("shape", [(5, 150, 70), *EDGE_SHAPES[4:]])
+def test_fake_analog_plain_matches_reference(max_code, flags, shape):
     """FET round trip and the fail/fault decode (write-verify codes and the
     full 7-bit alphabet) against the reference's oracle."""
     apply_fet, use_fail = flags
-    v, wn, fail, aux = _fake_operands(9, max_code)
+    v, wn, fail, aux = _fake_operands(9, max_code, shape)
     kw = dict(adc_bits=5, apply_fet=apply_fet, use_fail=use_fail)
     out_t = _np(tfa.fake_analog_kernel(_t(v), _t(wn), _t(fail), _t(aux), **kw))
     out_r = np.asarray(jref.ref_fake_analog(
         jnp.asarray(v), jnp.asarray(wn), jnp.asarray(fail), jnp.asarray(aux),
         **kw))
-    assert out_t.shape == (5, 70)
+    assert out_t.shape == (shape[0], shape[2])
     np.testing.assert_allclose(out_t, out_r, rtol=1e-6, atol=1e-6 * 1234.5)
 
 

@@ -7,11 +7,13 @@ nvcc; without them they skip.  On a machine with both:
 
 Bounds: the LLG kernel, the reference's kernel-vs-oracle bound, rows 0-5
 within atol 2e-5 and row 7 equal (the kernel follows the plain version
-operation by operation, so both are usually bit-identical).  The analog MAC
-kernels (``csrc/analog_mac.cu``): bit-line MAC rtol 1e-5 / atol 1e-8 without
-ADC, at most 1 LSB on under 1% of elements with it; XNOR exact; fake-analog
-rtol 1e-6 / atol 1e-6 x decode gain, and its raw currents bit-equal to the
-bit-line kernel's on the same g_diff.
+operation by operation, so both are usually bit-identical).  The analog GEMM
+kernels (``csrc/analog_mac.cu``, ``csrc/xnor_gemm.cu``): bit-line MAC rtol
+1e-5 / atol 1e-8 without ADC, at most 1 LSB on under 1% of elements with it;
+XNOR exact (operands in {-1, 0, +1}, float32 and bfloat16); fake-analog rtol
+1e-6 / atol 1e-6 x decode gain, and its raw currents bit-equal to the
+bit-line kernel's on the same g_diff; split-K calls bit-equal from call to
+call.
 """
 import math
 
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.core.montecarlo import thermal_sigma
 from repro_torch.core.params import AFMTJ_PARAMS, MTJ_PARAMS
+from repro_torch.kernels import analog_mac
 from repro_torch.kernels import fake_analog as fa
 from repro_torch.kernels import noise, ref
 from repro_torch.kernels.bitline_mac import bitline_mac_kernel
@@ -92,17 +95,46 @@ def no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+# the reference tests' odd shapes; split-K edges: K below the unclamped split
+# x BK (1 x 20 x 77), K not a multiple of the stage depth (2 x 100 x 190 on
+# element copies, 2 x 100 x 192 on 16-byte copies), M = 1 with a deep split
+# (1 x 4864 x 896); qwen2-0.5b's five full-width (K, N) at M = 128.  The
+# split shapes also hold the chunk rule: a chunk missed or summed twice
+# would break the XNOR GEMM's exactness.
 SHAPES = [(3, 200, 77), (65, 130, 190), (1, 1, 1), (129, 127, 128),
-          (128, 896, 128), (128, 896, 896)]
+          (1, 20, 77), (2, 100, 190), (2, 100, 192), (1, 4864, 896),
+          (128, 896, 896), (128, 896, 128), (128, 896, 4864),
+          (128, 4864, 896), (128, 896, 151936)]
+
+
+@pytest.mark.parametrize("shape,split", [((128, 4864, 896), True),
+                                         ((128, 896, 151936), False)])
+def test_counts_of_a_call(dev, shape, split):
+    """One mainloop launch per call, one reduce-pass launch when K is split
+    (the tile comes from the built library), and the call's shape."""
+    m, k, n = shape
+    n_sm = analog_mac.sm_count(torch.cuda.current_device())
+    assert n_sm == torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in ("analog_mac", "xnor_gemm"):
+        s = analog_mac.split_count(m, n, k, analog_mac.tile(name), n_sm)
+        assert (s > 1) == split
+    v = torch.ones(m, k, device=dev)
+    g = torch.ones(k, n, device=dev)
+    analog_mac.reset_counts(bitline_mac_kernel, xnor_gemm_kernel)
+    bitline_mac_kernel(v, g)
+    xnor_gemm_kernel(v, g)
+    for kern in (bitline_mac_kernel, xnor_gemm_kernel):
+        assert (kern.launches, kern.reduce_launches) == (1, int(split))
+        assert kern.launch_shapes == {(m, k, n): 1}
 
 
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("adc_bits", [0, 4, 8])
 def test_bitline_mac_matches_plain(dev, no_tf32, shape, adc_bits):
     m, k, n = shape
-    gen = torch.Generator().manual_seed(0)
-    v = torch.rand(m, k, generator=gen).to(dev)
-    g = (torch.rand(k, n, generator=gen) * 3.4e-4).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    v = torch.rand(m, k, generator=gen, device=dev)
+    g = torch.rand(k, n, generator=gen, device=dev) * 3.4e-4
     i_max = 0.05 * max(k, 1) / 384
     before = bitline_mac_kernel.launches
     out = bitline_mac_kernel(v, g, adc_bits, i_max)
@@ -118,34 +150,45 @@ def test_bitline_mac_matches_plain(dev, no_tf32, shape, adc_bits):
         assert (diff > lsb * 1e-3).float().mean().item() < 0.01
 
 
+def _ternary(shape, gen, dev, zeros: float):
+    """+-1 with a ``zeros`` share of 0 (the operand contract {-1, 0, +1})."""
+    x = torch.sign(torch.randn(*shape, generator=gen, device=dev))
+    x[torch.rand(*shape, generator=gen, device=dev) < zeros] = 0.0
+    return x
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("binarize,tie", [(False, 1), (True, 1), (True, -1)])
-def test_xnor_gemm_exact(dev, shape, dtype, binarize, tie):
+@pytest.mark.parametrize("zeros", [0.0, 0.1])
+def test_xnor_gemm_exact(dev, shape, dtype, binarize, tie, zeros):
     m, k, n = shape
-    gen = torch.Generator().manual_seed(1)
-    a = torch.sign(torch.randn(m, k, generator=gen)).to(dev, dtype)
-    w = torch.sign(torch.randn(k, n, generator=gen)).to(dev, dtype)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    a = _ternary((m, k), gen, dev, zeros).to(dtype)
+    w = _ternary((k, n), gen, dev, zeros).to(dtype)
+    before = xnor_gemm_kernel.launches
     out = xnor_gemm_kernel(a, w, binarize, tie)
     torch.cuda.synchronize()
+    assert xnor_gemm_kernel.launches == before + 1
     assert torch.equal(out, ref.ref_xnor_gemm(a, w, binarize, tie))
 
 
 def _fake_operands(m, k, n, dev, max_code=fa.FAIL_CODE_MAX):
-    gen = torch.Generator().manual_seed(2)
-    v = torch.randn(m, k, generator=gen) * 0.1
-    wn = torch.tanh(torch.randn(k, n, generator=gen))
-    fail = torch.randint(0, max_code + 1, (k, n), generator=gen).float()
-    aux = torch.zeros(fa.AUX_ROWS, n)
-    aux[fa.ROW_ATT_POS] = 0.9 + 0.1 * torch.rand(n, generator=gen)
-    aux[fa.ROW_ATT_NEG] = 0.9 + 0.1 * torch.rand(n, generator=gen)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    v = torch.randn(m, k, generator=gen, device=dev) * 0.1
+    wn = torch.tanh(torch.randn(k, n, generator=gen, device=dev))
+    fail = torch.randint(0, max_code + 1, (k, n), generator=gen,
+                         device=dev).float()
+    aux = torch.zeros(fa.AUX_ROWS, n, device=dev)
+    aux[fa.ROW_ATT_POS] = 0.9 + 0.1 * torch.rand(n, generator=gen, device=dev)
+    aux[fa.ROW_ATT_NEG] = 0.9 + 0.1 * torch.rand(n, generator=gen, device=dev)
     aux[fa.ROW_I_MAX] = 2e-3 * max(k, 1) / 150
     aux[fa.ROW_DECODE] = 1234.5
     aux[fa.ROW_G_AP] = 2e-4
     aux[fa.ROW_G_FS] = 3e-4
     aux[fa.ROW_G_SCALE] = 1.05
     aux[fa.ROW_R_ACCESS] = 1e3
-    return [t.to(dev) for t in (v, wn, fail, aux)]
+    return v, wn, fail, aux
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -179,3 +222,21 @@ def test_fake_raw_currents_bit_equal_to_bitline(dev):
     i_mac = bitline_mac_kernel(v, g_diff, 6, i_max)
     torch.cuda.synchronize()
     assert torch.equal(i_fake, i_mac)
+
+
+@pytest.mark.parametrize("shape", [(1, 4864, 896), (128, 896, 128),
+                                   (128, 896, 151936)])
+def test_repeat_calls_are_bit_equal(dev, shape):
+    """Split-K without atomics: every call sums in the same order."""
+    m, k, n = shape
+    gen = torch.Generator(device=dev).manual_seed(6)
+    v = torch.randn(m, k, generator=gen, device=dev)
+    g = torch.randn(k, n, generator=gen, device=dev) * 3.4e-4
+    first = bitline_mac_kernel(v, g, 0, 1.0)
+    assert torch.equal(first, bitline_mac_kernel(v, g, 0, 1.0))
+    ops = _fake_operands(m, k, n, dev)
+    first = fa.fake_analog_kernel(*ops, 6, True, True)
+    assert torch.equal(first, fa.fake_analog_kernel(*ops, 6, True, True))
+    a, w = _ternary((m, k), gen, dev, 0.1), _ternary((k, n), gen, dev, 0.1)
+    first = xnor_gemm_kernel(a, w)
+    assert torch.equal(first, xnor_gemm_kernel(a, w))
