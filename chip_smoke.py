@@ -9,11 +9,19 @@ Phases (any failure raises and the script exits non-zero):
    versions; build ``src/repro_torch/kernels/csrc/llg_rk4.cu``,
    ``analog_mac.cu`` and ``xnor_gemm.cu`` with one nvcc each, started
    together; TF32 off.
+   The SASS census of the LLG kernel (``tools/sass_census.py``): the
+   instructions one step issues on its fast path, per template instance,
+   from which phases 1 and 4 compute the issue floor.
 1. The LLG kernel against its plain PyTorch version on the card, on the
    same inputs: deterministic and thermal, chunk 0 and 64, ragged step
-   budgets, two Brown sigmas, single-sublattice (MTJ) and variation rows.
-   Bound: rows 0-5 within atol 2e-5 and row 7 (first crossing) equal —
-   the reference's own kernel-vs-oracle bound.
+   budgets, two Brown sigmas, single-sublattice (MTJ) and variation rows,
+   in every layout (C blocks per exit group x T threads per lane x P noise
+   producers; C in 1, 2, 4, 8, 16, T = 2 for the AFMTJ, P = 1 for chunked
+   thermal launches with C >= 8); the plain output is computed once per
+   case and every layout is held against it.  Bound: bit-identical (rows
+   0-5 max |d| 0.0, rows 6-7 equal) — tighter than the reference's own
+   kernel-vs-oracle bound (atol 2e-5), since the kernel repeats the plain
+   version's float32 operations in order.
 2. The paper's chain at full width through the entry points a user calls:
    the Fig. 3 device writes (``simulate_write``), ``wer_margined_pulse``
    (1 V, WER <= 1e-2, 128 samples) and ``evaluate_system`` for both device
@@ -27,7 +35,19 @@ Phases (any failure raises and the script exits non-zero):
    the plain version on the same inputs: the campaign of phase 3, the
    write-verify first rounds of ``evaluate_system(write_percentile=99.0)``
    (4,096 and 8,192 lanes) and the 128-sample WER ladder, for both device
-   kinds.
+   kinds.  At each shape the layout sweep (every C x T x P, each held
+   bit-identical against the one plain output and timed once), then the
+   old layout (C1T1: C = 1, T = 1, P = 0) and the rule's
+   (``llg_rk4.layout_rule``)
+   timed in turns (old, new, new, old); microseconds per step (over the
+   longest lane's steps) beside the WER ladder's at C = 1, T = 1 (one live
+   warp per scheduler); the operations bound and the issue floor (the
+   census's fast-path instructions per lane-step x executed lane-steps
+   over 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz) of both layouts.
+   4b. The same at write-verify rounds of 32, 64 and 128 exit groups per
+   kind (the rule's range between the main path's 16 groups and a full
+   card).  Fails if the rule's layout was slower than C1T1 by more than
+   3% in turns at any shape of 4 or 4b.
 
 5. Analog MVM and model-level accuracy (kernels of
    ``src/repro_torch/kernels/csrc/analog_mac.cu`` and ``xnor_gemm.cu``):
@@ -63,7 +83,8 @@ Phases (any failure raises and the script exits non-zero):
       ``torch.matmul``.
 
 Each kernel's launch counter is set to 0 before its main-path run (phases
-2-3 for the LLG kernel, 5b for the analog kernels) and read after it (the
+2-3 for the LLG kernel, with its launches by layout, 5b for the analog
+kernels) and read after it (the
 analog wrappers count their mainloop launches under ``launches``, and the
 split-K reduce pass a split call adds under ``reduce_launches``); the
 second-to-last line is the per-kernel JSON record and the last line
@@ -91,7 +112,18 @@ REF_WRITE = {"afmtj": (1.2546315375505657e-10, 4.0518586749693775e-14),
 REF_SUMMARIZE = {"afmtj": (14.939246898721372, 17.41633381712113),
                  "mtj": (6.647316258326578, 3.1090744983784835)}
 ANCHOR_RTOL = 0.01
-KERNEL_ATOL = 2e-5
+# every layout of the LLG kernel repeats the plain version's float32
+# operations in order: bit-identical (the reference's bound is 2e-5)
+KERNEL_ATOL = 0.0
+# (C, T, P): blocks per 512-lane exit group x threads per lane x noise
+# producers (P = 1 only in chunked thermal launches, C >= 8)
+LLG_LAYOUTS = ([(c, t, 0) for c in (1, 2, 4, 8, 16) for t in (1, 2)]
+               + [(c, t, 1) for c in (8, 16) for t in (1, 2)])
+# the rule's layout counts as no slower than C = 1, T = 1 within 3% (two
+# launches of the same layout, timed in turns, differ by up to ~1%)
+NO_SLOWER = 1.03
+# phase 4b: exit groups per launch between the main path's and a full card
+RULE_RANGE_GROUPS = (32, 64, 128)
 
 # Operations per lane-step of the thermal kernel, by sublattice count:
 # (float32 operations counted from csrc/llg_rk4.cu, its header note gives
@@ -107,6 +139,9 @@ H100_FP32_OPS_S = 67e12        # NVIDIA data sheet, H100 SXM, 700 W
 H100_SFU_OPS_S = 132 * 16 * 1.98e9   # 16 SFU lanes / SM / clock, boost clock
 H100_HBM_BYTES_S = 3.35e12     # NVIDIA data sheet, H100 SXM, HBM3
 H100_INT8_OPS_S = 1979e12      # NVIDIA data sheet, H100 SXM, int8 dense
+# thread-instructions per second: 132 SMs x 4 schedulers x 1 warp
+# instruction (32 threads) per clock, boost clock
+H100_ISSUE_S = 132 * 4 * 32 * 1.98e9
 
 # Phase 5: qwen2-0.5b's linears at batch 2 x seq 64 (M = 128 rows)
 QWEN_M = 128
@@ -154,14 +189,15 @@ def cuda_ms(fn):
     return out, start.elapsed_time(stop)
 
 
-def compare(out_k, out_p, n_steps: int, tag: str) -> float:
+def compare(out_k, out_p, n_steps: int, tag: str, verbose=True) -> float:
     import torch
 
     d = (out_k[:6] - out_p[:6]).abs().max().item()
     mism = int((out_k[7] != out_p[7]).sum().item())
     same67 = bool(torch.equal(out_k[6], out_p[6]))
-    log(f"  {tag}: max|d rows0-5| = {d:.3e}, row-7 mismatches = {mism}, "
-        f"crossed = {int((out_p[7] < n_steps).sum().item())}")
+    if verbose:
+        log(f"  {tag}: max|d rows0-5| = {d:.3e}, row-7 mismatches = {mism}, "
+            f"crossed = {int((out_p[7] < n_steps).sum().item())}")
     if not (d <= KERNEL_ATOL and mism == 0 and same67):
         raise AssertionError(f"{tag}: kernel disagrees with its plain version "
                              f"(max|d| {d}, row-7 mismatches {mism})")
@@ -169,10 +205,11 @@ def compare(out_k, out_p, n_steps: int, tag: str) -> float:
 
 
 def executed_lane_steps(out, budget, n_kernel: int, chunk: int,
-                        block: int) -> int:
-    """Lane-steps the kernel integrated on these inputs: a lane stops at its
-    budget, a block of ``block`` lanes at the first chunk boundary where
-    every lane has crossed or used its budget."""
+                        block: int) -> tuple:
+    """(lane-steps the kernel integrated on these inputs, steps of the
+    longest lane): a lane stops at its budget, an exit group of ``block``
+    lanes at the first chunk boundary where every lane has crossed or used
+    its budget."""
     import numpy as np
 
     row7 = out[7].double().cpu().numpy()
@@ -183,7 +220,50 @@ def executed_lane_steps(out, budget, n_kernel: int, chunk: int,
     done_at = np.minimum(done_at, n_chunks)
     block_exit = done_at.reshape(-1, block).max(axis=1) * chunk
     lane_exit = np.repeat(block_exit, block)
-    return int(np.minimum(bud, np.minimum(lane_exit, n_kernel)).sum())
+    steps = np.minimum(bud, np.minimum(lane_exit, n_kernel))
+    return int(steps.sum()), int(steps.max())
+
+
+def layouts_for(nsub: int, producers: bool) -> list:
+    return [(c, t, p) for c, t, p in LLG_LAYOUTS
+            if (t == 1 or nsub == 2) and (p == 0 or producers)]
+
+
+def layout_tag(layout) -> str:
+    return "C{}T{}".format(*layout[:2]) + ("P" if layout[2] else "")
+
+
+def issue_floor_ms(census: dict, lane_steps: int, thermal: bool, nsub: int,
+                   layout, chunked: bool = True) -> float:
+    """Least milliseconds for ``lane_steps`` at the card's issue rate: the
+    census's fast-path instructions per lane-step of the instance this
+    launch runs, x lane-steps, over 132 x 4 x 32 x 1.98e9 per second."""
+    c, t, prod = layout
+    cluster = thermal and chunked and c > 1
+    row = census[(thermal, False, nsub, t, cluster, bool(prod))]
+    return 1e3 * row["instructions_per_lane_step"] * lane_steps / H100_ISSUE_S
+
+
+def sweep_layouts(run, out_p, n: int, nsub: int, producers: bool,
+                  tag: str) -> dict:
+    """Every layout of ``run(layout)`` held bit-identical against the plain
+    output ``out_p`` and timed once after a warm launch: {tag: ms}."""
+    times = {}
+    for lay in layouts_for(nsub, producers):
+        run(lay)
+        out_k, ms = cuda_ms(lambda: run(lay))
+        compare(out_k, out_p, n, f"{tag} {layout_tag(lay)}", verbose=False)
+        times[layout_tag(lay)] = ms
+    log(f"    every layout bit-identical; ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items()))
+    return times
+
+
+def in_turns(run, old, new) -> tuple:
+    """(ms of ``old``, ms of ``new``): each the mean of two launches timed
+    in turns old, new, new, old."""
+    t = [cuda_ms(lambda: run(lay))[1] for lay in (old, new, new, old)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
 def bound_ms(lane_steps: int, nsub: int, ops=OPS_PER_LANE_STEP) -> tuple:
@@ -195,11 +275,12 @@ def bound_ms(lane_steps: int, nsub: int, ops=OPS_PER_LANE_STEP) -> tuple:
     return 1e3 * max(t_fp, t_sfu), "fp32" if t_fp >= t_sfu else "sfu"
 
 
-def phase1(torch, dev):
+def phase1(torch, dev, census):
     from repro_torch.core.montecarlo import thermal_sigma
     from repro_torch.core.params import AFMTJ_PARAMS, MTJ_PARAMS
     from repro_torch.kernels import noise, ref
-    from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
+    from repro_torch.kernels.llg_rk4 import (layout_rule, llg_rk4_kernel,
+                                             sm_count, takes_producers)
 
     log("phase 1: kernel vs plain version on the card")
     gen = torch.Generator(device="cpu").manual_seed(1234)
@@ -251,20 +332,31 @@ def phase1(torch, dev):
     for tag, p, dt, n, (vlo, vhi), th in cases:
         st = states(p, vlo, vhi)
         kw = {} if th is None else thermal_kw(p, dt, n, **th)
-        run = lambda: llg_rk4_kernel(st, p, dt, n, **kw)   # noqa: E731
-        run()          # warm: CUDA loads the module on its first launch
-        out_k, ms_k = cuda_ms(run)
+        nsub = p.n_sublattices
+        prods = takes_producers(th is not None, kw.get("chunk", 0))
+        rule = layout_rule(cells, nsub, sm_count(torch.cuda.current_device()),
+                           prods)
+        run = lambda lay: llg_rk4_kernel(st, p, dt, n, **kw,  # noqa: E731
+                                         layout=lay)
+        run(rule)      # warm: CUDA loads the module on its first launch
+        out_k, ms_k = cuda_ms(lambda: run(rule))
         out_p, ms_p = cuda_ms(lambda: ref.ref_llg_rk4(st, p, dt, n, **kw))
-        err = compare(out_k, out_p, n, f"{tag} (kernel {ms_k:.2f} ms, plain "
-                      f"{ms_p:.0f} ms)")
-        rec = dict(case=tag, ms=ms_k, plain_ms=ms_p, max_abs_err=err)
+        err = compare(out_k, out_p, n, f"{tag} (kernel {ms_k:.2f} ms in "
+                      f"{layout_tag(rule)}, plain {ms_p:.0f} ms)")
+        sweep = sweep_layouts(run, out_p, n, nsub, prods, tag)
+        rec = dict(case=tag, layout=layout_tag(rule), ms=ms_k, plain_ms=ms_p,
+                   max_abs_err=err, sweep_ms=sweep)
         if th is None:
             # the deterministic kernel runs every lane for all n steps
-            b_ms, unit = bound_ms(cells * n, p.n_sublattices,
-                                  OPS_PER_LANE_STEP_DET)
-            rec.update(lane_steps=cells * n, bound_ms=b_ms, bound_unit=unit)
+            b_ms, unit = bound_ms(cells * n, nsub, OPS_PER_LANE_STEP_DET)
+            floors = {layout_tag(lay): issue_floor_ms(census, cells * n,
+                                                      False, nsub, lay)
+                      for lay in dict.fromkeys([(1, 1, 0), rule])}
+            rec.update(lane_steps=cells * n, bound_ms=b_ms, bound_unit=unit,
+                       issue_floor_ms=floors)
             log(f"    {cells * n} lane-steps -> bound {b_ms:.4f} ms ({unit});"
-                f" kernel at {100 * b_ms / ms_k:.2f}% of it")
+                f" kernel at {100 * b_ms / ms_k:.2f}% of it; issue floor "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in floors.items()))
         records.append(rec)
     return records
 
@@ -339,14 +431,12 @@ def phase2(torch):
 def phase3(torch, dev):
     import numpy as np
 
-    from repro_torch.campaign import CampaignGrid, run_campaign
+    from repro_torch.campaign import run_campaign
     from repro_torch.core.params import AFMTJ_PARAMS
     from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
 
     log("phase 3: 600,000-lane campaign")
-    grid = CampaignGrid(voltages=(0.6, 1.2), pulse_widths=(120e-12, 250e-12),
-                        temperatures=(300.0, 350.0, 400.0), n_samples=100_000,
-                        dt=0.1e-12, seed=0)
+    grid = campaign_grid()
     t0 = time.perf_counter()
     res = run_campaign(AFMTJ_PARAMS, grid, use_cache=False)
     wall = time.perf_counter() - t0
@@ -365,66 +455,188 @@ def phase3(torch, dev):
     return llg_rk4_kernel.launches, grid, wall
 
 
-def hold_at_shape(dev, kind: str, grid, what: str) -> dict:
-    """Pack ``grid`` as ``run_campaign`` does, time the kernel's launch on
-    it (after one warm launch) and the plain version's, and hold the two
-    against each other."""
+def pack_shape(dev, kind: str, grid) -> dict:
+    """The kernel's inputs for ``grid``, packed as ``run_campaign`` packs
+    them (thermal, chunk ``EARLY_EXIT_CHUNK``)."""
     from repro_torch.campaign import pack_campaign
     from repro_torch.campaign.engine import EARLY_EXIT_CHUNK, _quantize_steps
     from repro_torch.imc.write_margin import params_for
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
-    from repro_torch.kernels.ref import CELL_TILE
 
     p = params_for(kind)
     state, seeds, sigma, budget, _ = pack_campaign(grid, p, dev)
-    n_kernel = _quantize_steps(grid.n_steps)
-    kw = dict(thermal_sigma=sigma, seeds=seeds, step_budget=budget,
-              chunk=EARLY_EXIT_CHUNK)
-    run = lambda: llg_rk4_kernel(state, p, grid.dt, n_kernel, **kw)
-    run()
-    out_k, ms_k = cuda_ms(run)
-    out_p, ms_p = cuda_ms(lambda: ref.ref_llg_rk4(
-        state, p, grid.dt, n_kernel, **kw))
+    return dict(kind=kind, p=p, dt=grid.dt, steps=grid.n_steps,
+                n_kernel=_quantize_steps(grid.n_steps), state=state,
+                kw=dict(thermal_sigma=sigma, seeds=seeds, step_budget=budget,
+                        chunk=EARLY_EXIT_CHUNK))
+
+
+def leading_groups(shape: dict, groups: int) -> dict:
+    """The launch of ``shape``'s first ``groups`` exit groups alone.  Exit
+    groups never interact (each votes on its own lanes), so the plain
+    output of those lanes is the leading columns of the whole block's."""
+    from repro_torch.kernels.ref import CELL_TILE
+
+    n = groups * CELL_TILE
+    kw = dict(shape["kw"])
+    for k in ("thermal_sigma", "seeds", "step_budget"):
+        kw[k] = kw[k][:n].contiguous()
+    return dict(shape, state=shape["state"][:, :n].contiguous(), kw=kw)
+
+
+def plain_output(shape: dict) -> tuple:
+    from repro_torch.kernels import ref
+
+    return cuda_ms(lambda: ref.ref_llg_rk4(
+        shape["state"], shape["p"], shape["dt"], shape["n_kernel"],
+        **shape["kw"]))
+
+
+def hold_at_shape(dev, kind: str, grid, what: str, census) -> dict:
+    """Pack ``grid`` as ``run_campaign`` does and hold the kernel against
+    the plain version's output on it (``hold_launch``)."""
+    shape = pack_shape(dev, kind, grid)
+    out_p, ms_p = plain_output(shape)
+    return hold_launch(shape, out_p, ms_p, what, census)
+
+
+def hold_launch(shape: dict, out_p, ms_p: float, what: str,
+                census) -> dict:
+    """Hold every layout of the kernel on ``shape`` against the plain
+    output ``out_p`` (computed once, in ``ms_p``) and time each; then time
+    C = 1, T = 1 and the rule's layout in turns."""
+    import torch
+
+    from repro_torch.campaign.engine import EARLY_EXIT_CHUNK
+    from repro_torch.kernels.llg_rk4 import (layout_rule, llg_rk4_kernel,
+                                             sm_count, takes_producers)
+    from repro_torch.kernels.ref import CELL_TILE
+
+    kind, p, state, kw = shape["kind"], shape["p"], shape["state"], shape["kw"]
+    n_kernel = shape["n_kernel"]
+    nsub = p.n_sublattices
     lanes = state.shape[1]
-    err = compare(out_k, out_p, n_kernel, f"{kind} {what}: {lanes} lanes x "
-                  f"{grid.n_steps} steps (horizon {n_kernel}; kernel "
-                  f"{ms_k:.3f} ms, plain {ms_p:.0f} ms)")
-    steps = executed_lane_steps(out_k, budget, n_kernel, EARLY_EXIT_CHUNK,
-                                CELL_TILE)
-    b_ms, unit = bound_ms(steps, p.n_sublattices)
-    log(f"    executed lane-steps {steps} -> bound {b_ms:.4f} ms ({unit}); "
-        f"kernel at {100 * b_ms / ms_k:.1f}% of it")
-    return dict(kind=kind, what=what, lanes=lanes, steps=grid.n_steps,
-                horizon=n_kernel, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_unit=unit, lane_steps=steps, max_abs_err=err)
+    prods = takes_producers(True, EARLY_EXIT_CHUNK)
+    rule = layout_rule(lanes, nsub, sm_count(torch.cuda.current_device()),
+                       prods)
+    run = lambda lay: llg_rk4_kernel(state, p, shape["dt"],  # noqa: E731
+                                     n_kernel, **kw, layout=lay)
+    run(rule)
+    out_k = run(rule)
+    tag = f"{kind} {what}: {lanes} lanes x {shape['steps']} steps"
+    err = compare(out_k, out_p, n_kernel, f"{tag} (horizon {n_kernel}, rule "
+                  f"layout {layout_tag(rule)}; plain {ms_p:.0f} ms)")
+    sweep = sweep_layouts(run, out_p, n_kernel, nsub, prods, tag)
+    ms_old, ms_new = in_turns(run, (1, 1, 0), rule)
+    steps, longest = executed_lane_steps(out_k, kw["step_budget"], n_kernel,
+                                         EARLY_EXIT_CHUNK, CELL_TILE)
+    b_ms, unit = bound_ms(steps, nsub)
+    floor_old = issue_floor_ms(census, steps, True, nsub, (1, 1, 0))
+    floor_new = issue_floor_ms(census, steps, True, nsub, rule)
+    log(f"    in turns: C1T1 {ms_old:.3f} ms, {layout_tag(rule)} "
+        f"{ms_new:.3f} ms ({ms_old / ms_new:.2f}x"
+        f"{'' if ms_new <= NO_SLOWER * ms_old else ', SLOWER'}); "
+        f"{1e3 * ms_old / longest:.3f} / {1e3 * ms_new / longest:.3f} us per "
+        f"step over the longest lane's {longest} steps")
+    log(f"    executed lane-steps {steps} -> operations bound {b_ms:.4f} ms "
+        f"({unit}), issue floor C1T1 {floor_old:.4f} ms, "
+        f"{layout_tag(rule)} {floor_new:.4f} ms; kernel at "
+        f"{100 * b_ms / ms_new:.1f}% of the bound, "
+        f"{100 * floor_new / ms_new:.1f}% of its issue floor")
+    return dict(kind=kind, what=what, lanes=lanes, steps=shape["steps"],
+                horizon=n_kernel, layout=layout_tag(rule), ms=ms_new,
+                ms_c1t1=ms_old, us_per_step=1e3 * ms_new / longest,
+                us_per_step_c1t1=1e3 * ms_old / longest, longest_lane=longest,
+                plain_ms=ms_p, bound_ms=b_ms, bound_unit=unit,
+                issue_floor_ms=floor_new, issue_floor_ms_c1t1=floor_old,
+                lane_steps=steps, max_abs_err=err, sweep_ms=sweep,
+                chosen_no_slower=ms_new <= NO_SLOWER * ms_old)
 
 
-def main_path_shapes(dev, campaign_grid) -> list:
+def campaign_grid():
+    """Phase 3's campaign: 3 temperatures x 2 voltages x 2 pulses x
+    100,000 samples (600,000 lanes, 786,432 packed) x 2,501 steps."""
+    from repro_torch.campaign import CampaignGrid
+
+    return CampaignGrid(voltages=(0.6, 1.2), pulse_widths=(120e-12, 250e-12),
+                        temperatures=(300.0, 350.0, 400.0), n_samples=100_000,
+                        dt=0.1e-12, seed=0)
+
+
+def round_grid(kind: str, n_cells: int):
+    """The first write-verify round of ``n_cells`` cells of
+    ``evaluate_system(write_percentile=99.0)``: the nominal x 1.5 pulse at
+    the policy's voltage and dt."""
+    from repro_torch.campaign import CampaignGrid
+    from repro_torch.imc.write_margin import params_for
+    from repro_torch.imc.write_path import WritePolicy
+
+    policy = WritePolicy()
+    return CampaignGrid(voltages=(policy.v_write,),
+                        pulse_widths=(policy.resolved_pulse(kind),),
+                        temperatures=(params_for(kind).temperature,),
+                        n_samples=n_cells, dt=policy.resolved_dt(kind),
+                        seed=policy.seed * 1009)
+
+
+def main_path_shapes(dev, campaign_grid, census) -> list:
     """Every launch shape of the main path: the phase-3 campaign, the first
     write-verify rounds of the L1/L2 (16 x 256) and MM (16 x 512) levels at
     each kind's nominal x 1.5 pulse, and the 128-sample WER ladder."""
     from repro_torch.campaign import CampaignGrid
     from repro_torch.imc.write_margin import _LADDERS, DEVICE_DT, params_for
-    from repro_torch.imc.write_path import WritePolicy
 
     log("phase 4: the main path's launch shapes, kernel vs plain version")
-    out = [hold_at_shape(dev, "afmtj", campaign_grid, "campaign")]
+    out = [hold_at_shape(dev, "afmtj", campaign_grid, "campaign", census)]
     for kind in ("afmtj", "mtj"):
-        policy = WritePolicy()
-        temps = (params_for(kind).temperature,)
         for n_cells in (4096, 8192):
-            grid = CampaignGrid(voltages=(policy.v_write,),
-                                pulse_widths=(policy.resolved_pulse(kind),),
-                                temperatures=temps, n_samples=n_cells,
-                                dt=policy.resolved_dt(kind),
-                                seed=policy.seed * 1009)
-            out.append(hold_at_shape(dev, kind, grid, "write-verify round"))
+            out.append(hold_at_shape(dev, kind, round_grid(kind, n_cells),
+                                     "write-verify round", census))
         grid = CampaignGrid(voltages=(1.0,), pulse_widths=_LADDERS[kind],
-                            temperatures=temps, n_samples=128,
-                            dt=DEVICE_DT[kind], seed=0)
-        out.append(hold_at_shape(dev, kind, grid, "WER ladder"))
+                            temperatures=(params_for(kind).temperature,),
+                            n_samples=128, dt=DEVICE_DT[kind], seed=0)
+        out.append(hold_at_shape(dev, kind, grid, "WER ladder", census))
+    for x in out:
+        ladder = next(y for y in out if y["kind"] == x["kind"]
+                      and y["what"] == "WER ladder")
+        x["us_per_step_one_warp"] = ladder["us_per_step_c1t1"]
+        log(f"  {x['kind']} {x['what']} ({x['lanes']} lanes): "
+            f"{x['us_per_step_c1t1']:.3f} us/step in C1T1, "
+            f"{x['us_per_step']:.3f} in {x['layout']}; the one-live-warp "
+            f"ladder in C1T1: {ladder['us_per_step_c1t1']:.3f} us/step")
     return out
+
+
+def rule_range_shapes(dev, census) -> list:
+    """Launches between the main path's largest (16 exit groups) and a full
+    card, where the layout rule must also hold: write-verify rounds of 32,
+    64 and 128 groups (16,384-65,536 cells: a larger array's rounds, or a
+    campaign of 10,000-60,000 lanes as ``bucket_cells`` pads it) of each
+    kind.  The 128-group round is packed once, its plain output computed
+    once, and the smaller launches are its leading groups."""
+    from repro_torch.kernels.ref import CELL_TILE
+
+    log("phase 4b: the rule's range between 16 groups and a full card")
+    out = []
+    for kind in ("afmtj", "mtj"):
+        shape = pack_shape(dev, kind, round_grid(
+            kind, RULE_RANGE_GROUPS[-1] * CELL_TILE))
+        out_p, ms_p = plain_output(shape)
+        for groups in RULE_RANGE_GROUPS:
+            out.append(hold_launch(leading_groups(shape, groups),
+                                   out_p[:, :groups * CELL_TILE], ms_p,
+                                   f"{groups}-group round", census))
+    return out
+
+
+def require_no_slower(records: list) -> None:
+    """Fail unless the rule's layout was no slower than C1T1 (within
+    ``NO_SLOWER``, timed in turns) at every shape of ``records``."""
+    slower = [f"{x['kind']} {x['what']} ({x['lanes']} lanes): "
+              f"{x['layout']} {x['ms']:.3f} ms vs C1T1 {x['ms_c1t1']:.3f}"
+              for x in records if not x["chosen_no_slower"]]
+    if slower:
+        raise AssertionError("the layout rule chose a slower layout than "
+                             "C1T1: " + "; ".join(slower))
 
 
 # --- phase 5: analog MVM and model-level accuracy ------------------------------
@@ -845,7 +1057,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, llg_rk4
     from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
 
     t_start = time.perf_counter()
@@ -853,26 +1065,43 @@ def main() -> int:
     log(f"phase 0: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_build = build.build_many(("llg_rk4", "analog_mac", "xnor_gemm"))
+    t_build = build.build_many(("llg_rk4", "analog_mac", "xnor_gemm"),
+                               {"llg_rk4": llg_rk4.BUILD_DEFINES})
     for name, sec in t_build.items():
         log(f"  nvcc build of {name}.cu: {sec:.1f} s" if sec else
             f"  {name}.cu already built")
+        if name == "llg_rk4":
+            continue      # the census below gives its instances' resources
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log("   ", line.strip())
+    sys.path.insert(0, str(ROOT / "tools"))
+    import sass_census
+
+    census_rows = sass_census.census(*sass_census.disassemble())
+    log("  SASS census of llg_rk4.cu (fast path of one step):")
+    for row in census_rows:
+        log("   ", sass_census.describe(row))
+    census = {sass_census.key(row): row for row in census_rows}
     cache = ROOT / "build" / "smoke-campaign-cache"
     shutil.rmtree(cache, ignore_errors=True)
     os.environ["REPRO_TORCH_CAMPAIGN_CACHE"] = str(cache)
     dev = torch.device("cuda")
 
-    phase1_cases = phase1(torch, dev)
-    llg_rk4_kernel.launches = 0
+    phase1_cases = phase1(torch, dev, census)
+    llg_rk4.reset_counts()
     launches_ev = phase2(torch)
     main_launches, grid, wall = phase3(torch, dev)
     if main_launches <= 0:
         raise AssertionError("the main path never launched the LLG kernel")
-    shapes = main_path_shapes(dev, grid)
+    launch_layouts = {f"{cells} lanes, NSUB={nsub}, {layout_tag(lay)}": n
+                      for (cells, nsub, *lay), n in
+                      sorted(llg_rk4_kernel.launch_layouts.items())}
+    log(f"  LLG launches of phases 2-3 by layout: {launch_layouts}")
+    shapes = main_path_shapes(dev, grid, census)
     shutil.rmtree(cache, ignore_errors=True)
+    rule_range = rule_range_shapes(dev, census)
+    require_no_slower(shapes + rule_range)
     m = shapes[0]
     analog_shapes = phase5_hold(torch, dev)
     path = phase5_path(torch, dev)
@@ -890,15 +1119,28 @@ def main() -> int:
         "launches": main_launches,
         "max_abs_err": max(x["max_abs_err"] for x in shapes),
         "ms": m["ms"],
+        "ms_c1t1": m["ms_c1t1"],
+        "layout": m["layout"],
         "plain_ms": m["plain_ms"],
         "bound_ms": m["bound_ms"],
         "bound_by": "operations",
+        "issue_floor_ms": m["issue_floor_ms"],
         "library_ms": None,
         "shape": "600000 lanes (786432 padded) x 2501 steps, chunk 64",
+        "launch_layouts": launch_layouts,
+        "sass_census": {
+            "THERMAL={:d} VARIATION={:d} NSUB={} TPL={} CLUSTER={:d} "
+            "PRODUCE={:d}".format(*k): dict(
+                per_lane_step=r["instructions_per_lane_step"],
+                          classes=r["classes"], mufu=r["mufu_per_step"],
+                          registers=r.get("registers"),
+                          stack=r.get("stack"))
+            for k, r in census.items()},
         "lane_steps": m["lane_steps"],
         "campaign_wall_s": wall,
         "launches_per_evaluate_system_p99": launches_ev,
         "main_path_shapes": shapes,
+        "rule_range_shapes": rule_range,
         "phase1_cases": phase1_cases,
     }]}
     replaces = {"bitline_mac": "src/repro/kernels/bitline_mac.py:87",

@@ -8,7 +8,9 @@ plain C interface (no PyTorch headers, so a build takes seconds):
 into ``build/repro_torch_kernels/<name>-<hash>.so`` under the repository
 root, keyed by a hash of the flags, the library's own source and the shared
 headers (``csrc/*.cuh``), so an edited source rebuilds its own library and
-no other.  The compiler's ``-Xptxas -v`` report (registers, spills) is kept
+no other.  ``defines`` (pairs of name and value, passed as ``-Dname=value``
+and hashed with the flags) carry sizes that a wrapper owns into its
+source.  The compiler's ``-Xptxas -v`` report (registers, spills) is kept
 beside the library as ``.log``.  ``build_many`` starts one nvcc per source,
 all together, and waits for all of them.
 """
@@ -43,10 +45,15 @@ def nvcc_path() -> str:
                        "built with the CUDA toolkit on the GPU machine")
 
 
-def library_path(name: str) -> Path:
-    """Content-keyed output path of ``csrc/<name>.cu``."""
+def define_flags(defines) -> tuple:
+    return tuple(f"-D{k}={v}" for k, v in defines)
+
+
+def library_path(name: str, defines=()) -> Path:
+    """Content-keyed output path of ``csrc/<name>.cu`` built with
+    ``defines``."""
     h = hashlib.sha256()
-    for part in (*NVCC_FLAGS, name):
+    for part in (*NVCC_FLAGS, *define_flags(defines), name):
         h.update(part.encode())
     for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
@@ -54,22 +61,26 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_many(names) -> dict:
+def build_many(names, defines=None) -> dict:
     """Compile every ``csrc/<name>.cu`` of ``names`` whose library is not
-    built yet, one nvcc process per source, all started together; returns
-    ``{name: seconds}`` (0.0 where there was nothing to do).  Raises with
-    the compiler's output if any nvcc fails."""
+    built yet, with ``defines[name]`` where given, one nvcc process per
+    source, all started together; returns ``{name: seconds}`` (0.0 where
+    there was nothing to do).  Raises with the compiler's output if any
+    nvcc fails."""
+    defines = defines or {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     seconds = {name: 0.0 for name in names}
     running = {}
     t0 = time.perf_counter()
     for name in names:
-        out = library_path(name)
+        flags = define_flags(defines.get(name, ()))
+        out = library_path(name, defines.get(name, ()))
         if out.exists() or name in running:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, out, tmp)
     failures = []
@@ -88,20 +99,20 @@ def build_many(names) -> dict:
     return seconds
 
 
-def build(name: str) -> float:
+def build(name: str, defines=()) -> float:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     returns the build's seconds (0.0 when there was nothing to do)."""
-    return build_many((name,))[name]
+    return build_many((name,), {name: defines})[name]
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines=()) -> str:
     """nvcc/ptxas output of the current build of ``name`` ('' if none)."""
-    log = library_path(name).with_suffix(".log")
+    log = library_path(name, defines).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if needed."""
-    build(name)
-    return ctypes.CDLL(str(library_path(name)))
+    build(name, defines)
+    return ctypes.CDLL(str(library_path(name, defines)))

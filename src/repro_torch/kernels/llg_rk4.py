@@ -10,7 +10,19 @@ reference's ``llg_rk4_pallas`` (minus ``interpret``):
   synchronising, or raises — there is no fallback.
 
 ``llg_rk4_kernel.launches`` counts kernel launches (plain calls do not
-count).  The scalar constants (``kernel_consts``) are the ones the plain
+count) and ``llg_rk4_kernel.launch_layouts`` counts them by ``(cells,
+n_sublattices, C, T, P)``; ``reset_counts()`` zeroes both.
+
+Layout.  A launch maps each 512-lane exit group onto C blocks (a
+thread-block cluster when the chunked exit votes across them) with T
+threads per lane (T = 2 splits an AFMTJ lane's two sublattices over two
+threads) and, if P = 1, noise producer threads that draw the Brown-field
+normals a batch of steps ahead (chunked thermal launches, C >= 8); see
+``csrc/llg_rk4.cu``.  ``layout_rule`` picks (C, T, P) from the lane count
+and the card's SM count; ``layout=`` forces one.  Every layout is
+bit-identical to every other and to the plain version.
+
+The scalar constants (``kernel_consts``) are the ones the plain
 version folds in double precision — ``1 + alpha^2``, ``0.5 dt``,
 ``dt / 6``, the Julliere conductance terms — rounded once to float32 when
 packed; products the plain version evaluates in float32, such as
@@ -19,7 +31,9 @@ order.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -29,6 +43,74 @@ from repro_torch.kernels.ref import CELL_TILE, ROWS, VAR_ROWS, ref_llg_rk4
 
 AUX_ROWS = 2          # aux plane: row 0 = per-lane sigma [T], row 1 = budget
 VAR_AUX_ROWS = AUX_ROWS + VAR_ROWS
+CLUSTER_SIZES = (1, 2, 4, 8, 16)   # blocks per exit group (C)
+PRODUCER_BATCH = 8       # P = 1: steps per batch; the chunk is a multiple
+PRODUCER_MIN_C = 8       # P = 1: at most 64 lanes per block
+# the largest launch, in exit groups, that the rule spreads: on an H100
+# (132 SMs; chip_smoke.py phases 4 and 4b) the rule's layout beat C = 1,
+# T = 1 at launches of 1, 8, 16, 32 and 64 groups and every layout lost
+# or tied at 128; larger launches keep C = 1, T = 1
+SPREAD_MAX_GROUPS = 64
+# the sizes above, compiled into csrc/llg_rk4.cu as -D flags
+BUILD_DEFINES = (("LLG_GROUP", CELL_TILE),
+                 ("LLG_MAX_CLUSTER", CLUSTER_SIZES[-1]),
+                 ("LLG_BATCH", PRODUCER_BATCH),
+                 ("LLG_PRODUCER_MIN_C", PRODUCER_MIN_C))
+
+
+def layout_rule(cells: int, nsub: int, sm_count: int,
+                producers: bool = True) -> tuple:
+    """``(C, T, P)`` for a launch of ``cells`` lanes on a card of
+    ``sm_count`` SMs; ``producers`` says whether the launch can take noise
+    producers (``takes_producers``).  Launches of at most
+    ``SPREAD_MAX_GROUPS`` exit groups, and fewer than ``sm_count``, take
+    the smallest C with groups x C >= sm_count (16 at most), two threads
+    per lane where there are two sublattices, and noise producers where
+    the launch takes them, with C raised to ``PRODUCER_MIN_C`` for them;
+    every other launch keeps (1, 1, 0)."""
+    groups = -(-int(cells) // CELL_TILE)
+    if groups > SPREAD_MAX_GROUPS or groups >= sm_count:
+        return 1, 1, 0
+    c = next((c for c in CLUSTER_SIZES if groups * c >= sm_count),
+             CLUSTER_SIZES[-1])
+    if producers:
+        c = max(c, PRODUCER_MIN_C)
+    return c, (2 if nsub == 2 else 1), int(producers)
+
+
+def check_layout(layout, nsub: int) -> tuple:
+    """``layout`` as a ``(C, T, P)`` tuple of ints (a ``(C, T)`` pair means
+    P = 0), or ValueError: C a power of two up to 16, T 1 or 2, T = 2 only
+    with two sublattices, P 0 or 1, P = 1 only with C >= 8."""
+    if not (isinstance(layout, (tuple, list)) and len(layout) in (2, 3) and
+            all(type(x) is int for x in layout)):
+        raise ValueError(f"layout must be a (C, T) or (C, T, P) tuple of "
+                         f"ints, got {layout!r}")
+    c, t, prod = (*layout, 0)[:3]
+    if c not in CLUSTER_SIZES:
+        raise ValueError(f"layout C must be one of {CLUSTER_SIZES}, got {c}")
+    if t not in (1, 2):
+        raise ValueError(f"layout T must be 1 or 2, got {t}")
+    if t == 2 and nsub != 2:
+        raise ValueError("layout T = 2 splits two sublattices over two "
+                         f"threads; this device has {nsub}")
+    if prod not in (0, 1):
+        raise ValueError(f"layout P must be 0 or 1, got {prod}")
+    if prod and c < PRODUCER_MIN_C:
+        raise ValueError(f"layout P = 1 (noise producers) needs C >= "
+                         f"{PRODUCER_MIN_C}, got C = {c}")
+    return c, t, prod
+
+
+def takes_producers(thermal: bool, chunk: int) -> bool:
+    """Whether a launch can run noise producers (P = 1): the chunked
+    thermal kernel with a chunk of whole producer batches."""
+    return thermal and chunk > 0 and chunk % PRODUCER_BATCH == 0
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def kernel_consts(p: DeviceParams, dt: float, switch_threshold: float) -> list:
@@ -45,15 +127,16 @@ def kernel_consts(p: DeviceParams, dt: float, switch_threshold: float) -> list:
 
 
 def _library() -> ctypes.CDLL:
-    lib = build.load("llg_rk4")
+    lib = build.load("llg_rk4", BUILD_DEFINES)
     if not getattr(lib, "_repro_typed", False):
         lib.llg_rk4_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-            + [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p])
+            + [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+            + [ctypes.c_int] * 3)
         lib.llg_rk4_launch.restype = ctypes.c_int
+        lib.llg_rk4_error_string.argtypes = [ctypes.c_int]
+        lib.llg_rk4_error_string.restype = ctypes.c_char_p
         lib.llg_rk4_n_consts.restype = ctypes.c_int
-        lib.llg_rk4_block_size.restype = ctypes.c_int
-        assert lib.llg_rk4_block_size() == CELL_TILE
         lib._repro_typed = True
     return lib
 
@@ -75,12 +158,22 @@ def llg_rk4_kernel(
     step_budget=None,             # optional (cells,) f32 per-lane step budget
     chunk: int = 0,               # >0: early-exit chunk size (steps)
     lane_params=None,             # optional (3, cells) f32: alpha, B_k, g_scale
+    layout=None,                  # optional (C, T[, P]); None = layout_rule
 ) -> torch.Tensor:
     """Advance the ``(8, cells)`` block ``n_steps`` RK4 steps (see
-    ``ref.ref_llg_rk4`` for the contract)."""
+    ``ref.ref_llg_rk4`` for the contract).  ``layout`` is checked on every
+    device and only steers the CUDA launch: the plain version has none."""
     if seeds is not None and seeds.dtype != torch.int32:
         raise ValueError(f"seeds must hold int32 bit patterns (noise."
                          f"cell_seeds), got {seeds.dtype}")
+    if layout is not None:
+        layout = check_layout(layout, p.n_sublattices)
+        if layout[2] and not takes_producers(seeds is not None, chunk):
+            raise ValueError(
+                f"layout P = 1 (noise producers) needs the chunked thermal "
+                f"kernel with a chunk that is a multiple of "
+                f"{PRODUCER_BATCH}; got seeds={seeds is not None}, "
+                f"chunk={chunk}")
     if state.device.type == "cpu":
         return ref_llg_rk4(state, p, dt, n_steps, switch_threshold,
                            thermal_sigma=thermal_sigma, seeds=seeds,
@@ -122,6 +215,9 @@ def llg_rk4_kernel(
                                  f"{tuple(lp.shape)}")
             rows += list(lp.unbind(0))
         aux = torch.stack(rows).contiguous()
+    if layout is None:
+        layout = layout_rule(cells, p.n_sublattices, sm_count(dev.index),
+                             takes_producers(seeds is not None, chunk))
     out = torch.empty_like(state)
     lib = _library()
     vals = kernel_consts(p, dt, switch_threshold)
@@ -135,11 +231,19 @@ def llg_rk4_kernel(
             None if aux is None else aux.data_ptr(),
             out.data_ptr(), cells, int(n_steps), int(chunk),
             int(p.n_sublattices), int(seeds is not None), int(variation),
-            consts, stream)
+            consts, stream, *layout)
     if err != 0:
-        raise RuntimeError(f"llg_rk4 kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"llg_rk4 kernel launch with layout (C, T, P) = "
+                           f"{layout} failed: {err}, "
+                           f"{lib.llg_rk4_error_string(err).decode()}")
     llg_rk4_kernel.launches += 1
+    llg_rk4_kernel.launch_layouts[(cells, p.n_sublattices, *layout)] += 1
     return out
 
 
-llg_rk4_kernel.launches = 0
+def reset_counts() -> None:
+    llg_rk4_kernel.launches = 0
+    llg_rk4_kernel.launch_layouts = collections.Counter()
+
+
+reset_counts()

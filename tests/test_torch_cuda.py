@@ -7,7 +7,9 @@ nvcc; without them they skip.  On a machine with both:
 
 Bounds: the LLG kernel, the reference's kernel-vs-oracle bound, rows 0-5
 within atol 2e-5 and row 7 equal (the kernel follows the plain version
-operation by operation, so both are usually bit-identical).  The analog GEMM
+operation by operation, so both are usually bit-identical); in every
+layout (C blocks per exit group x T threads per lane x P noise
+producers), bit-identical.  The analog GEMM
 kernels (``csrc/analog_mac.cu``, ``csrc/xnor_gemm.cu``): bit-line MAC rtol
 1e-5 / atol 1e-8 without ADC, at most 1 LSB on under 1% of elements with it;
 XNOR exact (operands in {-1, 0, +1}, float32 and bfloat16); fake-analog rtol
@@ -26,7 +28,7 @@ from repro_torch.kernels import analog_mac
 from repro_torch.kernels import fake_analog as fa
 from repro_torch.kernels import noise, ref
 from repro_torch.kernels.bitline_mac import bitline_mac_kernel
-from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
+from repro_torch.kernels.llg_rk4 import CLUSTER_SIZES, llg_rk4_kernel
 from repro_torch.kernels.xnor_gemm import xnor_gemm_kernel
 
 pytestmark = pytest.mark.cuda
@@ -85,6 +87,95 @@ def test_kernel_rejects_bad_shapes(dev):
     st = torch.zeros(8, 500, device=dev)
     with pytest.raises(ValueError):
         llg_rk4_kernel(st, AFMTJ_PARAMS, 1e-13, 10)
+
+
+# every valid (kind, (C, T, P)): T = 2 only for the two-sublattice AFMTJ,
+# P = 1 (noise producers) only with C >= 8
+LAYOUTS = [(kind, (c, t, p)) for kind in ("afmtj", "mtj")
+           for c in CLUSTER_SIZES for t in (1, 2) for p in (0, 1)
+           if (t == 1 or kind == "afmtj") and (p == 0 or c >= 8)]
+# producers need the chunked thermal kernel
+LAYOUT_CASES = [(kind, lay, case) for kind, lay in LAYOUTS
+                for case in ("det", "chunk0", "chunk64", "variation")
+                if lay[2] == 0 or case in ("chunk64", "variation")]
+_PLAIN = {}
+
+
+def _layout_case(kind, case, dev):
+    """(params, dt, n, state, kwargs) of one layout case; the variation
+    rows and the step budgets vary per lane."""
+    p = AFMTJ_PARAMS if kind == "afmtj" else MTJ_PARAMS
+    dt, n, v = ((0.1e-12, 700, (0.6, 2.0)) if kind == "afmtj"
+                else (0.2e-12, 1300, (2.0, 5.0)))
+    cells = 1024
+    st = _states(p, cells, *v, dev)
+    if case == "det":
+        return p, dt, n, st, {}
+    lane = torch.arange(cells, device=dev)
+    budget = torch.where(lane % 5 == 0, float(n // 3), float(n))
+    budget = torch.where(lane % 97 == 0, 0.0, budget)
+    kw = dict(thermal_sigma=thermal_sigma(p, dt), seeds=noise.cell_seeds(
+        9, cells, dev), step_budget=budget.float(),
+        chunk=0 if case == "chunk0" else 64)
+    if case == "variation":
+        gen = torch.Generator(device=dev).manual_seed(6)
+        kw["lane_params"] = torch.stack([
+            p.alpha * (0.8 + 0.4 * torch.rand(cells, generator=gen,
+                                              device=dev)),
+            p.b_aniso * (0.9 + 0.2 * torch.rand(cells, generator=gen,
+                                                device=dev)),
+            0.85 + 0.3 * torch.rand(cells, generator=gen, device=dev)])
+    return p, dt, n, st, kw
+
+
+@pytest.mark.parametrize("kind,layout,case", LAYOUT_CASES)
+def test_every_layout_is_bit_identical(dev, kind, layout, case):
+    p, dt, n, st, kw = _layout_case(kind, case, dev)
+    if (kind, case) not in _PLAIN:      # one plain run for every layout
+        _PLAIN[(kind, case)] = ref.ref_llg_rk4(st, p, dt, n, **kw)
+    before = llg_rk4_kernel.launches
+    out = llg_rk4_kernel(st, p, dt, n, **kw, layout=layout)
+    torch.cuda.synchronize()
+    assert llg_rk4_kernel.launches == before + 1
+    assert llg_rk4_kernel.launch_layouts[(1024, p.n_sublattices, *layout)]
+    assert torch.equal(out, _PLAIN[(kind, case)])
+
+
+@pytest.mark.parametrize("kind,layout", LAYOUTS)
+def test_cluster_vote(dev, kind, layout):
+    """Three exit groups at chunk 64: in group 0 only lane-warp 0 is live
+    (all in block 0 of its cluster), group 1 is all budget-0 padding, in
+    group 2 only lane-warp 15 is live (all in block C - 1).  A cluster that
+    left with a live block, or a block that left its cluster early, would
+    freeze live lanes or hang."""
+    p = AFMTJ_PARAMS if kind == "afmtj" else MTJ_PARAMS
+    dt, n, v = ((0.1e-12, 1500, (0.6, 2.0)) if kind == "afmtj"
+                else (0.2e-12, 3000, (2.0, 5.0)))
+    cells = 3 * 512
+    st = _states(p, cells, *v, dev)
+    lane = torch.arange(cells, device=dev)
+    live = (lane < 32) | ((lane >= 1024 + 15 * 32))
+    kw = dict(thermal_sigma=thermal_sigma(p, dt),
+              seeds=noise.cell_seeds(10, cells, dev),
+              step_budget=torch.where(live, float(n), 0.0).float(), chunk=64)
+    out = llg_rk4_kernel(st, p, dt, n, **kw, layout=layout)
+    torch.cuda.synchronize()
+    if ("vote", kind) not in _PLAIN:
+        _PLAIN[("vote", kind)] = ref.ref_llg_rk4(st, p, dt, n, **kw)
+    plain = _PLAIN[("vote", kind)]
+    assert torch.equal(out, plain)
+    assert torch.equal(out[:6, 512:1024], st[:6, 512:1024])   # padding
+    assert (out[7, live] < n).any()       # live lanes ran and crossed
+
+
+@pytest.mark.parametrize("layout", [(3, 1), (32, 1), (2, 2), (1, 2),
+                                    (4, 1, 1), (16, 1, 1)])
+def test_kernel_rejects_a_bad_layout(dev, layout):
+    st = torch.zeros(8, 512, device=dev)
+    before = llg_rk4_kernel.launches
+    with pytest.raises(ValueError):
+        llg_rk4_kernel(st, MTJ_PARAMS, 2e-13, 10, layout=layout)
+    assert llg_rk4_kernel.launches == before
 
 
 @pytest.fixture
