@@ -7,8 +7,9 @@ Phases (any failure raises and the script exits non-zero):
 
 0. Print the card (``nvidia-smi`` name and power limit), PyTorch and CUDA
    versions; build ``src/repro_torch/kernels/csrc/llg_rk4.cu``,
-   ``analog_mac.cu`` and ``xnor_gemm.cu`` with one nvcc each, started
-   together; TF32 off.
+   ``analog_mac.cu``, ``fake_analog.cu`` and ``xnor_gemm.cu`` with one nvcc
+   each, started together, and print the analog instances' registers,
+   stack and spills (``-Xptxas -v``); TF32 off.
    The SASS census of the LLG kernel (``tools/sass_census.py``): the
    instructions one step issues on its fast path, per template instance,
    from which phases 1 and 4 compute the issue floor.
@@ -50,7 +51,8 @@ Phases (any failure raises and the script exits non-zero):
    3% in turns at any shape of 4 or 4b.
 
 5. Analog MVM and model-level accuracy (kernels of
-   ``src/repro_torch/kernels/csrc/analog_mac.cu`` and ``xnor_gemm.cu``):
+   ``src/repro_torch/kernels/csrc/analog_mac.cu``, ``fake_analog.cu`` and
+   ``xnor_gemm.cu``):
    a. the bit-line MAC (B3), XNOR GEMM (B4) and fake-analog MVM (B5)
       kernels against their plain versions on the card, at the reference
       tests' odd shapes and at every full-width launch shape of qwen2-0.5b
@@ -59,7 +61,14 @@ Phases (any failure raises and the script exits non-zero):
       unembed), on the operands the path builds; each timed beside its
       plain version, its bound and the one PyTorch call computing the same
       function (``torch.matmul``, beside B3 without its ADC and B4 without
-      binarize; none for B5).  ``ms`` (kernel) and ``library_ms``
+      binarize; none for B5).  B5 is timed in both instances the smoke
+      holds: the path's (no FET, no fail plane) and the FET + fail one (the
+      ss corner's round trip and a write-BER fail plane), each beside its
+      own operations bound; and the path's B5 and B3 adc 8 on the same
+      operands (B3 on the g_diff B5 replays) in turns (B3, B5, B5, B3,
+      device time): the smoke fails if B5 over B3 exceeds the parent
+      commit's B5 over B3 (``PARENT_B5_OVER_B3``, ``tools/analog_ab.py``)
+      by more than 3% at any qwen2 shape.  ``ms`` (kernel) and ``library_ms``
       (``torch.matmul``) are eager: the mean of 10 back-to-back calls after
       a warm one, CUDA events around them, host dispatch included (as the
       model's eager forwards pay it); ``ms_device`` / ``library_ms_device``
@@ -153,13 +162,27 @@ LINEARS_PER_FORWARD = 24 * 7 + 1
 # forwards each analog kernel runs in phase 5b: fake (adc 4, 6, 8 and adc 8
 # again), device (twice, through the programming cache), bnn
 FORWARDS = {"fake_analog": 4, "bitline_mac": 2, "xnor_gemm": 1}
-# float32 operations per element outside the product (counted from
-# csrc/analog_mac.cu): the ADC epilogue (divide, clip x2, multiply, round,
-# divide, multiply) and B5's decode multiply per output; B5's conductance
-# replay per (k, n) element without FET / fail decode (targets: 2 max,
-# 1 negate, 2 multiply, 2 add; att_p tp - att_n tn: 2 multiply, 1 subtract)
+# operations per element outside the product (counted from
+# csrc/analog_common.cuh and csrc/fake_analog.cu): the ADC epilogue (divide,
+# clip x2, multiply, round, divide, multiply) and B5's decode multiply per
+# output; B5's conductance replay per (k, n) element, the path's instance
+# (|wn| G_FS, + G_AP, the sign test, m t, + c) and the FET + fail one
+# (|wn| G_FS, + G_AP; the FET round trip: 3 multiply, 2 add, 2 divide;
+# 2 sign tests; the decode: 2 range tests, floor, int conversion, 5 bit
+# tests; att_p tp - att_n tn: 2 multiply, 1 subtract), each operation
+# counted once at the float32 rate, so the bound is a floor
 ADC_OPS = 7
-REPLAY_OPS = 10
+REPLAY_OPS = 5
+REPLAY_OPS_FET_FAIL = 23
+# The parent commit's B5 (the bit-line MAC's mainloop with the replay in
+# place, before csrc/fake_analog.cu) over B3 adc 8 on the same operands,
+# device time over graphs of ``turn_calls`` calls: the median of three runs
+# of tools/analog_ab.py on one H100 (both kernels in one process, in
+# turns; the runs agree within 0.6%).  B5 is held to no more than
+# NO_SLOWER x this ratio against B3 in this run: no more than 3% slower than
+# the parent's B5, with B3 as the yardstick timed beside it.
+PARENT_B5_OVER_B3 = {"wq/wo": 1.2909, "wk/wv": 1.1699, "w_gate/w_up": 1.2583,
+                     "w_down": 1.2510, "unembed": 1.4063}
 
 
 def log(*a):
@@ -684,6 +707,13 @@ def graph_ms(torch, fn, reps: int) -> float:
     return ms
 
 
+def turn_calls(ms: float) -> int:
+    """Calls per CUDA graph when two kernels are timed in turns: ~2 ms of
+    device time (10 to 200 calls), so a small launch's time is not the
+    noise of a short graph."""
+    return int(min(200, max(10, 2.0 / ms)))
+
+
 def host_us(torch, fn, calls: int = 200) -> float:
     """Host microseconds per call of ``fn()``: the best of three loops of
     ``calls`` calls with no synchronization inside (the cost of enqueueing
@@ -732,26 +762,60 @@ def hold_close(out, plain, tag: str, rtol: float, atol: float,
     return d
 
 
+def fake_operand_sets(x, w, bl, dev) -> dict:
+    """{label: (operands, keyword arguments)} of B5 for ``x @ w`` as the fake
+    path builds them (adc 8, TMR 5.0, IR drop, decode): "path", no FET and
+    no fail plane; "fet+fail", the ss corner's FET round trip and a
+    write-BER 1e-2 fail plane."""
+    from repro_torch.core.params import PROCESS_CORNERS, VariationSpec
+    from repro_torch.imc import analog_pipeline as ap
+    from repro_torch.imc import model_analog as ma
+
+    sets = {}
+    for label, acfg in (
+            ("path", ap.AnalogConfig(adc_bits=8, tmr=5.0)),
+            ("fet+fail", ap.AnalogConfig(
+                adc_bits=8, tmr=5.0, write_ber=1e-2, variation=VariationSpec(
+                    corners=(PROCESS_CORNERS["ss"],))))):
+        apply_fet, g_scale = ma._systematic_g_scale(acfg)
+        use_fail = acfg.write_ber > 0.0
+        scal = ma._fake_scalars("afmtj", acfg, bl, g_scale, None, dev)
+        ops = ma.fake_operands(x, w, bl, scal, apply_fet=apply_fet,
+                               use_fail=use_fail, ir_drop=True,
+                               has_imax=False, decode=True)
+        sets[label] = (ops, dict(adc_bits=8, apply_fet=apply_fet,
+                                 use_fail=use_fail))
+    return sets
+
+
+def model_operands(torch, dev, m: int, k: int, n: int):
+    """(x, w, bit-line params) of an (m, k) @ (k, n) linear as phase 5a
+    draws it: unit-normal activations, N(0, 1/k) weights, from a seed of
+    the shape."""
+    from repro_torch.circuit.bitline import BitlineParams
+
+    gen = torch.Generator(device=dev).manual_seed(m * 7919 + k * 31 + n)
+    w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    return x, w, BitlineParams(rows=k), gen
+
+
 def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
                          timed: bool) -> dict:
     """B3, B4 and B5 on the operands the model path builds for an
     (m, k) @ (k, n) linear (unit-normal activations, N(0, 1/k) weights),
     against their plain versions; B5's raw currents against B3's on the same
     g_diff; and, if ``timed``, kernel / plain / library times."""
-    from repro_torch.circuit.bitline import BitlineParams
-    from repro_torch.core.params import PROCESS_CORNERS, VariationSpec
     from repro_torch.imc import analog_pipeline as ap
     from repro_torch.imc import model_analog as ma
     from repro_torch.kernels import ref
     from repro_torch.kernels.bitline_mac import bitline_mac_kernel
     from repro_torch.kernels.fake_analog import (ROW_DECODE, ROW_I_MAX,
+                                                 _tile_g_diff,
                                                  fake_analog_kernel)
     from repro_torch.kernels.xnor_gemm import binarize_acc, xnor_gemm_kernel
 
-    gen = torch.Generator(device=dev).manual_seed(m * 7919 + k * 31 + n)
-    w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
-    x = torch.randn(m, k, generator=gen, device=dev)
-    bl = BitlineParams(rows=k)
+    x, w, bl, gen = model_operands(torch, dev, m, k, n)
     rec = {"shape": [m, k, n], "what": what}
     tag = f"{what} ({m}x{k} @ {k}x{n})"
 
@@ -785,26 +849,14 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
     # B5 on the fake path's operands: the path's (no FET, no fail plane) and
     # with the ss corner's FET round trip + write-BER fail plane
     err5 = 0.0
-    fake_ops = {}
-    for label, acfg in (
-            ("path", ap.AnalogConfig(adc_bits=8, tmr=5.0)),
-            ("fet+fail", ap.AnalogConfig(
-                adc_bits=8, tmr=5.0, write_ber=1e-2, variation=VariationSpec(
-                    corners=(PROCESS_CORNERS["ss"],))))):
-        apply_fet, g_scale = ma._systematic_g_scale(acfg)
-        use_fail = acfg.write_ber > 0.0
-        scal = ma._fake_scalars("afmtj", acfg, bl, g_scale, None, dev)
-        ops = ma.fake_operands(x, w, bl, scal, apply_fet=apply_fet,
-                               use_fail=use_fail, ir_drop=True,
-                               has_imax=False, decode=True)
-        fk = dict(adc_bits=8, apply_fet=apply_fet, use_fail=use_fail)
+    fake_ops = fake_operand_sets(x, w, bl, dev)
+    for label, (ops, fk) in fake_ops.items():
         out = fake_analog_kernel(*ops, **fk)
         plain = ref.ref_fake_analog(*ops, **fk)
         dec = ops[3][ROW_DECODE, 0].item()
         lsb5 = dec * ops[3][ROW_I_MAX, 0].item() / (2 ** 7 - 1)
         err5 = max(err5, hold_close(out, plain, f"fake_analog {label} {tag}",
                                     1e-6, 1e-6 * dec, lsb5))
-        fake_ops[label] = (ops, fk)
 
     # B5's raw currents bit-equal to B3's on the same g_diff (no IR drop,
     # shared full scale)
@@ -828,11 +880,16 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
 
     f4 = 4
     ops_p, fk_p = fake_ops["path"]
+    ops_f, fk_f = fake_ops["fet+fail"]
     reps = 10
     xh, wh = xb.bfloat16(), wb.bfloat16()
     b3_bound = gemm_bound(m, k, n, ADC_OPS * m * n, f4 * (m * k + k * n + m * n))
     b5_bound = gemm_bound(m, k, n, REPLAY_OPS * k * n + (ADC_OPS + 1) * m * n,
                           f4 * (m * k + k * n + 4 * n + m * n))
+    # + the fail plane read, and the FET / decode work
+    b5f_bound = gemm_bound(m, k, n, REPLAY_OPS_FET_FAIL * k * n
+                           + (ADC_OPS + 1) * m * n,
+                           f4 * (m * k + 2 * k * n + 4 * n + m * n))
 
     def b4_bound(elt: int):
         # +-1 operands: int8 tensor-core rate; bytes in the arriving dtype
@@ -866,9 +923,26 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
         bound_ms_bf16=b4_bound(2)[0], bound_by_bf16=b4_bound(2)[1])
     rec["fake_analog"] = dict(
         **both("ms", lambda: fake_analog_kernel(*ops_p, **fk_p)),
+        **both("ms_fet_fail", lambda: fake_analog_kernel(*ops_f, **fk_f)),
         plain_ms=time_ms(torch, lambda: ref.ref_fake_analog(*ops_p, **fk_p), 3),
         library_ms=None, library_ms_device=None,
-        bound_ms=b5_bound[0], bound_by=b5_bound[1])
+        bound_ms=b5_bound[0], bound_by=b5_bound[1],
+        bound_ms_fet_fail=b5f_bound[0], bound_by_fet_fail=b5f_bound[1])
+    # B5 against B3 adc 8 on the same operands (B3 on the g_diff that B5
+    # replays, the path's uniform full scale), device time in turns
+    g_p = _tile_g_diff(ops_p[1], ops_p[2], ops_p[3], apply_fet=False,
+                       use_fail=False)
+    i_max_p = ops_p[3][ROW_I_MAX, 0].item()
+    turns = {"b3": lambda: bitline_mac_kernel(ops_p[0], g_p, 8, i_max_p),
+             "b5": lambda: fake_analog_kernel(*ops_p, **fk_p)}
+    r5 = rec["fake_analog"]
+    n_turn = turn_calls(r5["ms_device"])
+    t = [graph_ms(torch, turns[key], n_turn) for key in ("b3", "b5", "b5", "b3")]
+    r5.update(b3_turns_ms_device=(t[0] + t[3]) / 2,
+              b5_turns_ms_device=(t[1] + t[2]) / 2)
+    r5["b5_over_b3"] = r5["b5_turns_ms_device"] / r5["b3_turns_ms_device"]
+    r5["no_slower_than_parent"] = (
+        r5["b5_over_b3"] <= NO_SLOWER * PARENT_B5_OVER_B3.get(what, math.inf))
     for name in ("bitline_mac", "xnor_gemm", "fake_analog"):
         r = rec[name]
         lib = ("" if r["library_ms"] is None else
@@ -883,6 +957,17 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
             f"{100 * r['bound_ms'] / r['ms_device']:.1f}% of it")
     log("    host us per call: " + ", ".join(
         f"{name} {us:.1f}" for name, us in rec["host_us"].items()))
+    log(f"    fake_analog fet+fail: kernel {r5['ms_fet_fail']:.4f} ms (device "
+        f"{r5['ms_fet_fail_device']:.4f}, "
+        f"{r5['ms_fet_fail_device'] / r5['ms_device']:.3f}x the path's), "
+        f"bound {r5['bound_ms_fet_fail']:.4f} ms ({r5['bound_by_fet_fail']}),"
+        f" device time "
+        f"{100 * r5['bound_ms_fet_fail'] / r5['ms_fet_fail_device']:.1f}% of "
+        f"it; in turns, device: bitline_mac adc 8 "
+        f"{r5['b3_turns_ms_device']:.4f} ms, fake_analog "
+        f"{r5['b5_turns_ms_device']:.4f} ms ({r5['b5_over_b3']:.4f}x; the "
+        f"parent's B5 {PARENT_B5_OVER_B3.get(what, math.nan):.3f}x"
+        f"{'' if r5['no_slower_than_parent'] else ', SLOWER'})")
     r = rec["xnor_gemm"]
     log(f"    xnor_gemm bfloat16: kernel {r['ms_bf16']:.4f} ms (device "
         f"{r['ms_bf16_device']:.4f}), torch.matmul (bf16 out) "
@@ -905,9 +990,11 @@ def per_forward(shapes: list, path: dict) -> dict:
             "xnor_gemm bfloat16": ("xnor_gemm", "ms_bf16"),
             "torch.matmul +-1 float32": ("xnor_gemm", "library_ms"),
             "fake_analog adc 8": ("fake_analog", "ms"),
+            "fake_analog fet+fail adc 8": ("fake_analog", "ms_fet_fail"),
             "bitline_mac bound": ("bitline_mac", "bound_ms"),
             "xnor_gemm float32 bound": ("xnor_gemm", "bound_ms"),
-            "fake_analog bound": ("fake_analog", "bound_ms")}
+            "fake_analog bound": ("fake_analog", "bound_ms"),
+            "fake_analog fet+fail bound": ("fake_analog", "bound_ms_fet_fail")}
     timed = {tuple(x["shape"]): x for x in shapes}
     per_shape = {}
     for name, n_fwd in FORWARDS.items():
@@ -922,14 +1009,35 @@ def per_forward(shapes: list, path: dict) -> dict:
     out = {}
     for suffix in ("", "_device"):
         out["eager" if not suffix else "device"] = {
-            label: sum(timed[s][name][key + ("" if key == "bound_ms" else
-                                             suffix)] * c
+            label: sum(timed[s][name][key + ("" if key.startswith("bound_ms")
+                                             else suffix)] * c
                        for s, c in per_shape[name].items())
             for label, (name, key) in keys.items()}
     out["launches_per_forward"] = {
         name: {"x".join(map(str, s)): c for s, c in sorted(d.items())}
         for name, d in per_shape.items()}
     return out
+
+
+def require_b5_no_slower(shapes: list) -> None:
+    """Fail unless B5 was no more than 3% slower than the parent's B5 at
+    every qwen2 shape: its time over B3 adc 8's on the same operands (in
+    turns, device time) within ``NO_SLOWER`` x ``PARENT_B5_OVER_B3``."""
+    slower = [f"{x['what']}: fake_analog / bitline_mac "
+              f"{x['fake_analog']['b5_over_b3']:.4f}, the parent's "
+              f"{PARENT_B5_OVER_B3[x['what']]:.3f}"
+              for x in shapes if not x["fake_analog"]["no_slower_than_parent"]]
+    if slower:
+        raise AssertionError("fake_analog more than 3% slower than the "
+                             "parent's: " + "; ".join(slower))
+
+
+def ptxas_lines(log: str) -> list:
+    """The ``-Xptxas -v`` lines naming each entry function and giving its
+    registers, stack and spills."""
+    return [line.strip() for line in log.splitlines()
+            if "entry function" in line or "registers" in line
+            or "spill" in line]
 
 
 def phase5_hold(torch, dev) -> list:
@@ -1065,16 +1173,16 @@ def main() -> int:
     log(f"phase 0: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_build = build.build_many(("llg_rk4", "analog_mac", "xnor_gemm"),
+    t_build = build.build_many(("llg_rk4", "analog_mac", "fake_analog",
+                                "xnor_gemm"),
                                {"llg_rk4": llg_rk4.BUILD_DEFINES})
     for name, sec in t_build.items():
         log(f"  nvcc build of {name}.cu: {sec:.1f} s" if sec else
             f"  {name}.cu already built")
         if name == "llg_rk4":
             continue      # the census below gives its instances' resources
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log("   ", line.strip())
+        for line in ptxas_lines(build.build_log(name)):
+            log("   ", line)
     sys.path.insert(0, str(ROOT / "tools"))
     import sass_census
 
@@ -1107,6 +1215,7 @@ def main() -> int:
     path = phase5_path(torch, dev)
     per_fwd = per_forward(analog_shapes, path)
     log_per_forward(per_fwd)
+    require_b5_no_slower(analog_shapes)
 
     record = {"kernels": [{
         "name": "llg_rk4",
@@ -1149,7 +1258,7 @@ def main() -> int:
     errs = {"bitline_mac": "bitline_mac_err", "xnor_gemm": None,
             "fake_analog": "fake_analog_err"}
     sources = {"bitline_mac": "analog_mac.cu", "xnor_gemm": "xnor_gemm.cu",
-               "fake_analog": "analog_mac.cu"}
+               "fake_analog": "fake_analog.cu"}
     widest = analog_shapes[-1]
     for name, line in replaces.items():
         r = widest[name]

@@ -7,14 +7,18 @@
   llg_rk4  — ``llg_rk4_kernel``: wrapper of the CUDA kernel
              ``csrc/llg_rk4.cu`` (replaces the Pallas ``_llg_kernel`` and
              ``_llg_thermal_kernel``)
-  bitline_mac, fake_analog
-           — wrappers of the bit-line MAC (B3) and fake-analog MVM (B5)
-             kernels, one float32 split-K mainloop in ``csrc/analog_mac.cu``
+  bitline_mac
+           — wrapper of the bit-line MAC (B3), a float32 split-K mainloop
+             in ``csrc/analog_mac.cu``
+  fake_analog
+           — wrapper of the fake-analog MVM (B5), the same mainloop fed by
+             a producer warpgroup that replays the conductances, in
+             ``csrc/fake_analog.cu``
   xnor_gemm
            — wrapper of the XNOR GEMM (B4), bf16 tensor cores in
              ``csrc/xnor_gemm.cu``
   analog_mac
-           — ctypes bindings of both analog sources and their split-K rule
+           — ctypes bindings of the analog sources and their split-K rule
   ops      — public entry points and the (8, cells) SoA packing helpers
   build    — nvcc build of ``csrc/*.cu`` into ctypes-loaded libraries
 """

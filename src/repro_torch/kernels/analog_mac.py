@@ -1,8 +1,10 @@
 """ctypes bindings of the analog GEMM sources — ``csrc/analog_mac.cu`` (the
-bit-line MAC B3 and the fake-analog MVM B5, one float32 SIMT mainloop) and
-``csrc/xnor_gemm.cu`` (the XNOR GEMM B4, tensor cores) — the split-K rule
-they share, and the launch path of their wrappers.  Nothing is built or
-loaded until a wrapper launches on a CUDA tensor.
+bit-line MAC B3, a float32 SIMT mainloop), ``csrc/fake_analog.cu`` (the
+fake-analog MVM B5, the same mainloop fed by a producer warpgroup that
+replays the conductances) and ``csrc/xnor_gemm.cu`` (the XNOR GEMM B4,
+tensor cores) — the split-K rule they share, and the launch path of their
+wrappers.  Nothing is built or loaded until a wrapper launches on a CUDA
+tensor.
 
 Split-K.  A grid whose output tiles cannot fill the card's SMs cuts K into
 ``splits`` contiguous chunks of whole BK steps (``k_range`` in
@@ -11,8 +13,9 @@ workspace, and a second kernel (the reduce pass) adds the partials in split
 order and applies the epilogue.  ``split_count`` is a plain function of
 (M, N, K), the kernel's tile (read from its library) and the SM count: at
 most one wave of blocks, no chunk without a K step, and 1 when the tiles
-alone fill the SMs.  B3 and B5 share the tile and the rule, so they add the
-same products in the same order.
+alone fill the SMs.  B5 takes its split count from B3's tile
+(``plan(..., split_tile="analog_mac")``) and has B3's BK, so the two add
+the same products in the same order.
 
 Counts.  Each wrapper keeps ``launches`` (launches of its mainloop kernel:
 one per call on a CUDA tensor), ``reduce_launches`` (launches of the
@@ -39,9 +42,12 @@ _ARGTYPES = {
     "analog_mac": {
         "bitline_mac_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _I, _P],
+        "analog_mac_tile": [_I],
+    },
+    "fake_analog": {
         "fake_analog_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _P],
-        "analog_mac_tile": [_I],
+        "fake_analog_tile": [_I],
     },
     "xnor_gemm": {
         "xnor_gemm_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -118,12 +124,15 @@ def cuda_index(name: str, *ts: torch.Tensor) -> int:
     return index
 
 
-def plan(name: str, M: int, K: int, N: int, like: torch.Tensor):
+def plan(name: str, M: int, K: int, N: int, like: torch.Tensor,
+         split_tile: str | None = None):
     """(library, splits, workspace) of an (M, K) @ (K, N) launch of
-    ``csrc/<name>.cu`` on the device of ``like``.  The workspace holds the
+    ``csrc/<name>.cu`` on the device of ``like``, K split by the tile of
+    ``csrc/<split_tile>.cu`` (default: its own).  The workspace holds the
     float32 partials of a split launch (None when ``splits`` is 1)."""
     lib = library(name)
-    splits = split_count(M, N, K, tile(name), sm_count(like.get_device()))
+    splits = split_count(M, N, K, tile(split_tile or name),
+                         sm_count(like.get_device()))
     return lib, splits, workspace(splits, M, N, like.device)
 
 

@@ -9,10 +9,14 @@ per-column IR attenuation rows; then one product with the voltages, the
 ADC on the per-column full scale and the decode gain.  Scalars ride an
 (8, N) aux plane (``ROW_*``).
 
-``fake_analog_kernel`` wraps the CUDA kernel in ``csrc/analog_mac.cu``
-(replaces the Pallas ``_fake_kernel``; it shares the bit-line MAC's mainloop
-and split-K rule): CPU tensors run the plain version
-``ref.ref_fake_analog``, CUDA tensors launch the kernel or raise.
+``fake_analog_kernel`` wraps the CUDA kernel in ``csrc/fake_analog.cu``
+(replaces the Pallas ``_fake_kernel``: a producer warpgroup replays the
+conductances into a shared-memory ring that consumer warpgroups run the
+bit-line MAC's float32 mainloop on; it takes the bit-line MAC's split-K
+chunks): CPU tensors run the plain version ``ref.ref_fake_analog``, CUDA
+tensors launch the kernel or raise (also when the library's register count
+is not the one its warpgroup split assumes: error -1).  The kernel takes
+finite ``wn`` and fail codes 0 .. ``FAIL_CODE_MAX``.
 ``fake_analog_kernel.launches`` counts mainloop launches,
 ``.reduce_launches`` reduce-pass launches (calls that split K) and
 ``.launch_shapes`` mainloop launches by (M, K, N) (``analog_mac`` module
@@ -48,6 +52,10 @@ FAULT_POS_ON = 16   # hard stuck-at-G_on: positive cell pinned at G_AP+G_FS
 FAULT_NEG_ON = 32   # hard stuck-at-G_on: negative cell pinned at G_AP+G_FS
 FAULT_DEAD = 64     # dead differential pair (dead row driver / repair mask)
 FAIL_CODE_MAX = 127
+
+# the library whose tile sets the K chunks (the bit-line MAC's: B5 and B3
+# then add the same products in the same order)
+SPLIT_TILE = "analog_mac"
 
 
 def fail_bit(code: torch.Tensor, bit: int) -> torch.Tensor:
@@ -122,8 +130,8 @@ def fake_analog_kernel(v: torch.Tensor, wn: torch.Tensor, fail: torch.Tensor,
     v, wn, fail, aux = (analog_mac.f32(t) for t in (v, wn, fail, aux))
     out = torch.empty((M, N), dtype=torch.float32, device=v.device)
     if M and N:
-        # the bit-line MAC's tile and split rule: same chunks, same order
-        lib, splits, ws = analog_mac.plan("analog_mac", M, K, N, v)
+        lib, splits, ws = analog_mac.plan("fake_analog", M, K, N, v,
+                                          split_tile=SPLIT_TILE)
         vec = N % 4 == 0 and analog_mac.aligned(wn, fail)
         analog_mac.launch("fake_analog", lib.fake_analog_launch, index,
                           v.data_ptr(), wn.data_ptr(), fail.data_ptr(),

@@ -16,7 +16,7 @@ and with a single group the two are identical.
 
 ``ref_bitline_mac``, ``ref_xnor_gemm`` and ``ref_fake_analog`` are the plain
 versions of the analog MAC kernels (``csrc/analog_mac.cu``,
-``csrc/xnor_gemm.cu``), mirroring the
+``csrc/xnor_gemm.cu``, ``csrc/fake_analog.cu``), mirroring the
 reference's jnp oracles: one float32 matmul plus the shared epilogue
 helpers of ``bitline_mac`` / ``xnor_gemm`` / ``fake_analog``.
 """

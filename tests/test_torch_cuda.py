@@ -10,12 +10,13 @@ within atol 2e-5 and row 7 equal (the kernel follows the plain version
 operation by operation, so both are usually bit-identical); in every
 layout (C blocks per exit group x T threads per lane x P noise
 producers), bit-identical.  The analog GEMM
-kernels (``csrc/analog_mac.cu``, ``csrc/xnor_gemm.cu``): bit-line MAC rtol
-1e-5 / atol 1e-8 without ADC, at most 1 LSB on under 1% of elements with it;
-XNOR exact (operands in {-1, 0, +1}, float32 and bfloat16); fake-analog rtol
-1e-6 / atol 1e-6 x decode gain, and its raw currents bit-equal to the
-bit-line kernel's on the same g_diff; split-K calls bit-equal from call to
-call.
+kernels (``csrc/analog_mac.cu``, ``csrc/xnor_gemm.cu``,
+``csrc/fake_analog.cu``): bit-line MAC rtol 1e-5 / atol 1e-8 without ADC,
+at most 1 LSB on under 1% of elements with it; XNOR exact (operands in
+{-1, 0, +1}, float32 and bfloat16); fake-analog rtol 1e-6 / atol 1e-6 x
+decode gain (every instance: 16-byte or 4-byte copies x FET x fail plane),
+and its raw currents bit-equal to the bit-line kernel's on the same g_diff
+at the qwen2-0.5b shapes; split-K calls bit-equal from call to call.
 """
 import math
 
@@ -331,3 +332,123 @@ def test_repeat_calls_are_bit_equal(dev, shape):
     a, w = _ternary((m, k), gen, dev, 0.1), _ternary((k, n), gen, dev, 0.1)
     first = xnor_gemm_kernel(a, w)
     assert torch.equal(first, xnor_gemm_kernel(a, w))
+
+
+# --- the fake-analog MVM (csrc/fake_analog.cu): every instance -------------
+
+FLAGS = [(fet, fail) for fet in (False, True) for fail in (False, True)]
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` 4 bytes off a 16-byte boundary (the
+    wrapper then takes the 4-byte copy instance, VEC = false)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _hold_fake(out, plain, aux, adc_bits):
+    decode = aux[fa.ROW_DECODE, 0].item()
+    lsb = decode * aux[fa.ROW_I_MAX, 0].item() / (2 ** (adc_bits - 1) - 1)
+    diff = (out - plain).abs()
+    close = diff <= 1e-6 * plain.abs() + 1e-6 * decode
+    # a float-ulp difference in the sum may land on an ADC bin edge
+    assert diff.max().item() <= lsb * 1.001
+    assert (~close).float().mean().item() < 0.01
+
+
+@pytest.mark.parametrize("shape", SHAPES[:8])
+@pytest.mark.parametrize("flags", FLAGS)
+@pytest.mark.parametrize("vec", [True, False])
+def test_fake_analog_every_instance(dev, no_tf32, shape, flags, vec):
+    """All 8 instances (VEC x FET x FAIL) against the plain version at the
+    odd and split-K edge shapes; VEC = false forced by operands off a
+    16-byte boundary."""
+    apply_fet, use_fail = flags
+    v, wn, fail, aux = _fake_operands(*shape, dev)
+    if not vec:
+        wn, fail = _unaligned(wn), _unaligned(fail)
+    assert analog_mac.aligned(wn, fail) == vec
+    kw = dict(adc_bits=5, apply_fet=apply_fet, use_fail=use_fail)
+    out = fa.fake_analog_kernel(v, wn, fail, aux, **kw)
+    torch.cuda.synchronize()
+    _hold_fake(out, ref.ref_fake_analog(v, wn, fail, aux, **kw), aux, 5)
+
+
+@pytest.mark.parametrize("apply_fet", [False, True])
+def test_fake_analog_decodes_codes_as_fail_bit(dev, no_tf32, apply_fet):
+    """Codes outside 0 .. FAIL_CODE_MAX decode as the plain version's
+    fail_bit (a floored mod): negative (normal) codes to the bits of
+    floor(code) in two's complement; -0.0, NaN, infinities and codes of
+    2^31 and more to none.  (Negative subnormal codes are the one
+    documented difference: fail_bit's product underflows there.)"""
+    m, k, n = 65, 130, 192
+    v, wn, _, aux = _fake_operands(m, k, n, dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    specials = torch.tensor(
+        [-1.0, -0.5, -3.25, -64.0, -127.0, -1e6, -0.0, float("nan"),
+         float("inf"), -float("inf"), 2.0 ** 31, 3e38, 1000.5, 127.75],
+        device=dev)
+    pick = torch.randint(0, len(specials), (k, n), generator=gen, device=dev)
+    fail = specials[pick]
+    kw = dict(adc_bits=6, apply_fet=apply_fet, use_fail=True)
+    out = fa.fake_analog_kernel(v, wn, fail, aux, **kw)
+    torch.cuda.synchronize()
+    _hold_fake(out, ref.ref_fake_analog(v, wn, fail, aux, **kw), aux, 6)
+
+
+@pytest.mark.parametrize("shape", [(7, 200, 150), (128, 896, 896),
+                                   (128, 896, 128), (128, 896, 4864),
+                                   (128, 4864, 896), (128, 896, 151936)])
+@pytest.mark.parametrize("flags", FLAGS)
+def test_fake_raw_currents_bit_equal_at_model_shapes(dev, shape, flags):
+    """att = 1, decode = 1: the fused kernel's quantized currents equal the
+    bit-line kernel's on the g_diff it replays, in every instance, at the
+    qwen2-0.5b launch shapes (the same split-K chunks, summed in the same
+    order)."""
+    apply_fet, use_fail = flags
+    v, wn, fail, aux = _fake_operands(*shape, dev)
+    aux[fa.ROW_ATT_POS] = 1.0
+    aux[fa.ROW_ATT_NEG] = 1.0
+    aux[fa.ROW_DECODE] = 1.0
+    i_max = aux[fa.ROW_I_MAX, 0].item()
+    g_diff = fa._tile_g_diff(wn, fail, aux, apply_fet=apply_fet,
+                             use_fail=use_fail)
+    i_fake = fa.fake_analog_kernel(v, wn, fail, aux, 6, apply_fet, use_fail)
+    i_mac = bitline_mac_kernel(v, g_diff, 6, i_max)
+    torch.cuda.synchronize()
+    assert torch.equal(i_fake, i_mac)
+
+
+@pytest.mark.parametrize("shape", [(1, 4864, 896), (128, 896, 128),
+                                   (128, 896, 151936)])
+@pytest.mark.parametrize("flags", FLAGS)
+def test_fake_every_instance_repeats_bit_equal(dev, shape, flags):
+    """Split-K without atomics and a producer / consumer ring: every call
+    sums in the same order."""
+    ops = _fake_operands(*shape, dev)
+    first = fa.fake_analog_kernel(*ops, 6, *flags)
+    for _ in range(2):
+        assert torch.equal(first, fa.fake_analog_kernel(*ops, 6, *flags))
+
+
+@pytest.mark.parametrize("shape,split", [((128, 4864, 896), True),
+                                         ((128, 896, 151936), False),
+                                         ((128, 896, 128), True)])
+def test_fake_counts_of_a_call(dev, shape, split):
+    """One mainloop launch per call, one reduce-pass launch when K is split
+    (by the bit-line MAC's tile), and the call's shape."""
+    m, k, n = shape
+    # B5's chunks are whole steps of B3's depth
+    assert analog_mac.tile("fake_analog")[2] == analog_mac.tile("analog_mac")[2]
+    n_sm = analog_mac.sm_count(torch.cuda.current_device())
+    s = analog_mac.split_count(m, n, k, analog_mac.tile(fa.SPLIT_TILE), n_sm)
+    assert (s > 1) == split
+    ops = _fake_operands(m, k, n, dev)
+    analog_mac.reset_counts(fa.fake_analog_kernel)
+    for flags in FLAGS:
+        fa.fake_analog_kernel(*ops, 6, *flags)
+    kern = fa.fake_analog_kernel
+    assert (kern.launches, kern.reduce_launches) == (4, 4 * int(split))
+    assert kern.launch_shapes == {(m, k, n): 4}

@@ -6,13 +6,15 @@ What is held here is the rule itself: one wave at most, the split 1 when
 the output tiles already fill the SMs, never more chunks than BK steps (the
 kernels' chunks are whole steps, ``k_range`` in ``csrc/split_k.cuh``, so
 none is then empty), and one float32 (M, N) workspace plane per chunk.
-The wrappers' CPU path against the JAX reference is in
-``tests/test_torch_analog.py``.
+The fake-analog MVM (B5, ``csrc/fake_analog.cu``) takes its split count
+from the bit-line MAC's tile whatever its own tile, so the two add the same
+products in the same order.  The wrappers' CPU path against the JAX
+reference is in ``tests/test_torch_analog.py``.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import analog_mac
+from repro_torch.kernels import analog_mac, fake_analog
 from repro_torch.kernels.analog_mac import split_count, workspace
 
 H100_SMS = 132
@@ -88,3 +90,25 @@ def test_workspace_holds_one_plane_per_chunk(splits, m, n):
     else:
         assert ws.shape == (splits, m, n) and ws.dtype == torch.float32
     assert analog_mac.ptr(ws) == (None if ws is None else ws.data_ptr())
+
+
+@pytest.mark.parametrize("fake_tile", [(128, 128, 16), (128, 64, 16),
+                                       (64, 128, 16), (128, 256, 16)])
+@pytest.mark.parametrize("m,k,n", EDGE_SHAPES + [
+    (QWEN_M, k, n) for k, n in QWEN_SPLITS["mac"]])
+def test_fake_analog_splits_as_the_bitline_mac(monkeypatch, fake_tile, m, k,
+                                               n):
+    """B5's launch plan (the wrapper's ``plan`` call) splits K as B3's tile
+    does, whatever B5's own tile: the same chunks at every shape."""
+    tiles = {"analog_mac": TILES["mac"], "fake_analog": fake_tile}
+    monkeypatch.setattr(analog_mac, "library", lambda name: name)
+    monkeypatch.setattr(analog_mac, "tile", tiles.__getitem__)
+    monkeypatch.setattr(analog_mac, "sm_count", lambda index: H100_SMS)
+    like = torch.empty(1)
+    lib, s, ws = analog_mac.plan("fake_analog", m, k, n, like,
+                                 split_tile=fake_analog.SPLIT_TILE)
+    assert lib == "fake_analog"
+    assert s == split_count(m, n, k, TILES["mac"], H100_SMS)
+    if m == QWEN_M and (k, n) in QWEN_SPLITS["mac"]:
+        assert s == QWEN_SPLITS["mac"][(k, n)]
+    assert (ws is None) == (s == 1)

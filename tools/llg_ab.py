@@ -31,26 +31,21 @@ def _ours() -> list:
     return [k for k in sys.modules if k == PKG or k.startswith(PKG + ".")]
 
 
-def import_other(root: Path):
-    """(llg_rk4 module, build module) of the checkout under ``root``,
-    imported beside this tree's modules, which stay in ``sys.modules``."""
+def import_other(root: Path, *names: str) -> dict:
+    """{name: module} of the modules ``names`` (dotted, under the package)
+    and of ``kernels.build``, from the checkout under ``root``, imported
+    beside this tree's modules, which stay in ``sys.modules``."""
     mine = {k: sys.modules.pop(k) for k in _ours()}
     sys.path.insert(0, str(root / "src"))
     try:
-        wrapper = importlib.import_module(f"{PKG}.kernels.llg_rk4")
-        build = sys.modules[f"{PKG}.kernels.build"]
+        mods = {n: importlib.import_module(f"{PKG}.{n}") for n in names}
+        mods["kernels.build"] = sys.modules[f"{PKG}.kernels.build"]
     finally:
         sys.path.remove(str(root / "src"))
         for k in _ours():
             del sys.modules[k]
         sys.modules.update(mine)
-    return wrapper, build
-
-
-def ptxas_lines(log: str) -> list:
-    return [line.strip() for line in log.splitlines()
-            if "entry function" in line or "registers" in line
-            or "spill" in line]
+    return mods
 
 
 def main() -> int:
@@ -70,7 +65,8 @@ def main() -> int:
     import chip_smoke
     from repro_torch.kernels import build, llg_rk4
 
-    other, other_build = import_other(args.other.resolve())
+    mods = import_other(args.other.resolve(), "kernels.llg_rk4")
+    other, other_build = mods["kernels.llg_rk4"], mods["kernels.build"]
     assert other.llg_rk4_kernel is not llg_rk4.llg_rk4_kernel
     print(chip_smoke.nvidia_smi(), flush=True)
 
@@ -95,11 +91,11 @@ def main() -> int:
           f"other {rec['ratio']:.4f}; runs {times}); outputs bit-equal",
           flush=True)
     print("ptxas, other tree:")
-    for line in ptxas_lines(other_build.build_log("llg_rk4")):
+    for line in chip_smoke.ptxas_lines(other_build.build_log("llg_rk4")):
         print("  ", line)
     print("ptxas, this tree:")
-    for line in ptxas_lines(build.build_log("llg_rk4",
-                                            llg_rk4.BUILD_DEFINES)):
+    for line in chip_smoke.ptxas_lines(
+            build.build_log("llg_rk4", llg_rk4.BUILD_DEFINES)):
         print("  ", line)
     print(json.dumps({"llg_ab_campaign": rec}))
     return 0
