@@ -7,12 +7,13 @@ Phases (any failure raises and the script exits non-zero):
 
 0. Print the card (``nvidia-smi`` name and power limit), PyTorch and CUDA
    versions; build ``src/repro_torch/kernels/csrc/llg_rk4.cu``,
-   ``analog_mac.cu``, ``fake_analog.cu`` and ``xnor_gemm.cu`` with one nvcc
-   each, started together, and print the analog instances' registers,
-   stack and spills (``-Xptxas -v``); TF32 off.
-   The SASS census of the LLG kernel (``tools/sass_census.py``): the
-   instructions one step issues on its fast path, per template instance,
-   from which phases 1 and 4 compute the issue floor.
+   ``llg_write.cu``, ``analog_mac.cu``, ``fake_analog.cu`` and
+   ``xnor_gemm.cu`` with one nvcc each, started together, and print the
+   other instances' registers, stack and spills (``-Xptxas -v``); TF32 off.
+   The SASS census of the LLG kernel and of the write kernel
+   (``tools/sass_census.py``): the instructions one step issues on its
+   fast path, per template instance, from which phases 1, 2b and 4
+   compute the issue floor.
 1. The LLG kernel against its plain PyTorch version on the card, on the
    same inputs: deterministic and thermal, chunk 0 and 64, ragged step
    budgets, two Brown sigmas, single-sublattice (MTJ) and variation rows,
@@ -24,12 +25,23 @@ Phases (any failure raises and the script exits non-zero):
    kernel-vs-oracle bound (atol 2e-5), since the kernel repeats the plain
    version's float32 operations in order.
 2. The paper's chain at full width through the entry points a user calls:
-   the Fig. 3 device writes (``simulate_write``), ``wer_margined_pulse``
+   the Fig. 3 device writes (``simulate_write``, through the write kernel
+   ``csrc/llg_write.cu``), ``wer_margined_pulse``
    (1 V, WER <= 1e-2, 128 samples) and ``evaluate_system`` for both device
    kinds, closed-form and with measured p99 write-verify timings (the
    real L1/L2/MM hierarchy: 256x256, 256x256, 512x512 subarrays; 16 rows of
    write-verify per level).  Deterministic anchors are held within 1% of
    the JAX reference's values; AFMTJ must beat MTJ on every workload.
+   2b. The write kernel against its plain version ``ref_llg_write`` on the
+   same inputs at every write launch of the main path (``WRITE_CASES``):
+   phase 2's 1 V solves (16,000 AFMTJ steps of 0.05 ps, 40,000 MTJ steps
+   of 0.1 ps; the quickstart's single write is the AFMTJ one), the
+   quickstart's four-voltage sweeps (4 x 16,000 AFMTJ, 4 x 60,000 MTJ
+   steps), and the reverse write.  Bound: bit-identical (final state,
+   t_switch, switched, energy) over the whole horizon, so the float32
+   time accumulation and the slow lanes' threshold crossings are held.
+   Each timed beside the eager plain version, its operations bound and
+   issue floor.
 3. One reliability campaign at a study's size: 3 temperatures x 2 voltages
    x 100,000 samples = 600,000 lanes x 2,501 steps, timed.
 4. Every launch shape of the main path, timed on the card and held against
@@ -91,9 +103,21 @@ Phases (any failure raises and the script exits non-zero):
       time from 5a, summed, eager and device, beside the same sum for
       ``torch.matmul``.
 
+6. The example twins ``examples/torch_quickstart.py`` and
+   ``torch_imc_case_study.py`` at full size through their ``run``
+   functions (the Fig. 3 sweeps at 16,000 / 60,000 steps, Fig. 4 and the
+   ten-arch decode mapping); every number they print is held within 1%
+   (``ANCHOR_RTOL``) of the reference's own output of
+   ``examples/quickstart.py`` and ``imc_case_study.py``
+   (``REF_QUICKSTART``, ``REF_CASE_STUDY``); switched flags and non-finite
+   values must be equal.  The printed mapping ratios do not depend on an
+   arch's parameter count, so each arch's crossbar tiles (equal) and AFMTJ
+   and MTJ decode time (within 1%) are held too, against the reference's
+   ``map_all`` (``REF_DECODE``).
+
 Each kernel's launch counter is set to 0 before its main-path run (phases
-2-3 for the LLG kernel, with its launches by layout, 5b for the analog
-kernels) and read after it (the
+2-3 for the LLG kernel, with its launches by layout, 2 and 6 for the
+write kernel, 5b for the analog kernels) and read after it (the
 analog wrappers count their mainloop launches under ``launches``, and the
 split-K reduce pass a split call adds under ``reduce_launches``); the
 second-to-last line is the per-kernel JSON record and the last line
@@ -120,6 +144,83 @@ REF_WRITE = {"afmtj": (1.2546315375505657e-10, 4.0518586749693775e-14),
              "mtj": (1.3394828579649243e-09, 3.60453610319042e-13)}
 REF_SUMMARIZE = {"afmtj": (14.939246898721372, 17.41633381712113),
                  "mtj": (6.647316258326578, 3.1090744983784835)}
+# the reference's own output of examples/quickstart.py and
+# examples/imc_case_study.py (src/repro, CPU), unrounded: write latency [s],
+# energy [J] and switched per voltage (0.5, 0.8, 1.0, 1.2 V; AFMTJ 16,000
+# steps of 0.05 ps, MTJ 60,000 of 0.1 ps) and the single 1 V AFMTJ write;
+# (speedup, energy saving) per Fig. 4 workload and their average; (AFMTJ
+# speedup, AFMTJ energy saving, MTJ speedup) per arch of the decode mapping
+REF_QUICKSTART = {
+    "afmtj": dict(
+        latency=[3.943773363435099e-10, 2.0646852283423556e-10,
+                 1.654631570646714e-10, 1.4582750285097035e-10],
+        energy=[3.217204944832609e-14, 4.318391483163278e-14,
+                5.406760041309737e-14, 6.851617661901219e-14],
+        switched=[True, True, True, True]),
+    "mtj": dict(
+        latency=[2.7385762546572323e-09, 1.7166976729043881e-09,
+                 1.3794828612745391e-09, 1.1554212031583688e-09],
+        energy=[1.8703739728884172e-13, 2.98256699286098e-13,
+                3.740026138180502e-13, 4.50917921708191e-13],
+        switched=[True, True, True, True]),
+    "single": dict(latency=1.654631570646714e-10,
+                   energy=5.406760041309737e-14, switched=True)}
+REF_CASE_STUDY = {
+    "afmtj": {
+        "bnn": (55.90189065909159, 42.22361680885465),
+        "img-grayscale": (7.44781335524745, 16.181309804442826),
+        "img-threshold": (5.4849948017348735, 15.218533677465135),
+        "mac": (3.4215699343660098, 3.5593919115326127),
+        "mat_add": (16.3394095226525, 25.100157317340283),
+        "rmse": (1.0398031192358088, 2.214993383091288),
+        "AVERAGE": (14.939246898721372, 17.41633381712113)},
+    "mtj": {
+        "bnn": (14.44115370834661, 6.529868897124318),
+        "img-grayscale": (5.377593939884286, 3.0294906295184436),
+        "img-threshold": (4.831213381701173, 3.301866454877128),
+        "mac": (2.4237826519789434, 0.6645852670752922),
+        "mat_add": (12.075514260145315, 4.7152210415344635),
+        "rmse": (0.7346396079031413, 0.4134147001412556),
+        "AVERAGE": (6.647316258326578, 3.1090744983784835)},
+    "map": {
+        "gemma2-2b": (2749785.2966758288, 70.93498547430569,
+                      2401722.699123776),
+        "internlm2-20b": (2749785.296675829, 70.9349854743057,
+                          2401722.6991237765),
+        "qwen2-0.5b": (2749785.296675829, 70.9349854743057,
+                       2401722.6991237765),
+        "qwen3-8b": (2749785.296675829, 70.93498547430569,
+                     2401722.6991237765),
+        "qwen2-vl-2b": (2749785.296675829, 70.93498547430568,
+                        2401722.699123777),
+        "llama4-maverick-400b-a17b": (2749785.296675829, 70.93498547430568,
+                                      2401722.6991237765),
+        "olmoe-1b-7b": (2749785.296675829, 70.93498547430568,
+                        2401722.6991237765),
+        "seamless-m4t-large-v2": (2749785.296675829, 70.93498547430566,
+                                  2401722.6991237765),
+        "mamba2-780m": (2749785.2966758288, 70.93498547430569,
+                        2401722.699123776),
+        "jamba-1.5-large-398b": (2749785.2966758288, 70.9349854743057,
+                                 2401722.6991237765)}}
+# the reference's map_all(ARCHS) (src/repro, CPU) per arch: (crossbar
+# tiles, AFMTJ t_imc [s], MTJ t_imc [s]) of one decode token.  Unlike the
+# printed ratios these scale with the arch's active parameter count.
+REF_DECODE = {
+    "gemma2-2b": (79776.0, 9.50656028003402e-08, 1.0884270565264281e-07),
+    "internlm2-20b": (606096.0, 7.222583432971695e-07,
+                      8.269295091912881e-07),
+    "qwen2-0.5b": (15074.5, 1.796362852754874e-08, 2.0566954552255866e-08),
+    "qwen3-8b": (249952.0, 2.9785696890230937e-07, 3.410230139802619e-07),
+    "qwen2-vl-2b": (47106.0, 5.613417927086875e-08, 6.426926008415302e-08),
+    "llama4-maverick-400b-a17b": (432260.0, 5.151055137694927e-07,
+                                  5.897556651801467e-07),
+    "olmoe-1b-7b": (39120.0, 4.661760907477573e-08, 5.337352894518886e-08),
+    "seamless-m4t-large-v2": (62092.875, 7.399338888238535e-08,
+                              8.471666311611691e-08),
+    "mamba2-780m": (23686.875, 2.82266226726247e-08, 3.231728293541847e-08),
+    "jamba-1.5-large-398b": (2843342.0, 3.3882874698847386e-06,
+                             3.87932506487912e-06)}
 ANCHOR_RTOL = 0.01
 # every layout of the LLG kernel repeats the plain version's float32
 # operations in order: bit-identical (the reference's bound is 2e-5)
@@ -144,6 +245,24 @@ OPS_PER_LANE_STEP = {2: (606, 36), 1: (317, 20)}
 # the deterministic kernel (THERMAL = false): no noise and no thermal-field
 # adds in the right-hand sides, no Box-Muller square roots (llg_rk4.cu)
 OPS_PER_LANE_STEP_DET = {2: (540, 33), 1: (272, 17)}
+# The single-junction write kernel (csrc/llg_write.cu, its header note
+# gives the breakdown): float32 operations per lane-step and MUFU (one per
+# IEEE division and sqrtf), by sublattice count
+WRITE_OPS_PER_LANE_STEP = {2: (543, 33), 1: (277, 17)}
+# phase 2b: (kind, voltages, steps, dt, down, what), each held
+# bit-identical against ref_llg_write and timed: every write launch of the
+# main path (phase 2's _characterize_write, whose AFMTJ solve is also the
+# quickstart's single write, and the quickstart's sweeps) and the reverse
+# write (-2 V from the -z state: starting antiparallel, it draws less
+# current than the forward write, and -1 V does not switch within 3,000
+# steps)
+QUICKSTART_VOLTS = (0.5, 0.8, 1.0, 1.2)
+WRITE_CASES = [
+    ("afmtj", (1.0,), 16000, 0.05e-12, True, "phase 2 / quickstart 1 V"),
+    ("mtj", (1.0,), 40000, 0.1e-12, True, "phase 2"),
+    ("afmtj", QUICKSTART_VOLTS, 16000, 0.05e-12, True, "quickstart sweep"),
+    ("mtj", QUICKSTART_VOLTS, 60000, 0.1e-12, True, "quickstart sweep"),
+    ("afmtj", (-2.0,), 3000, 0.05e-12, False, "reverse write")]
 H100_FP32_OPS_S = 67e12        # NVIDIA data sheet, H100 SXM, 700 W
 H100_SFU_OPS_S = 132 * 16 * 1.98e9   # 16 SFU lanes / SM / clock, boost clock
 H100_HBM_BYTES_S = 3.35e12     # NVIDIA data sheet, H100 SXM, HBM3
@@ -449,6 +568,69 @@ def phase2(torch):
             assert a[name].energy_saving > m[name].energy_saving, (mode, name)
     log(f"  launches per evaluate_system(write_percentile=99.0): {launches}")
     return launches
+
+
+def write_inputs(torch, dev, kind: str, volts, down: bool):
+    """The write kernel's inputs as ``core.device.write_sweep`` builds
+    them: the initial state on the host's formula (``llg.initial_state`` at
+    the Boltzmann tilt), one lane per voltage."""
+    from repro_torch.core import llg
+    from repro_torch.core.device import thermal_theta0
+    from repro_torch.imc.write_margin import params_for
+
+    p = params_for(kind)
+    m0 = llg.initial_state(p, theta0=thermal_theta0(p), phi0=0.3, up=down,
+                           device=dev)
+    m0 = m0.expand(len(volts), *m0.shape).contiguous()
+    return p, m0, torch.tensor(volts, dtype=torch.float32, device=dev)
+
+
+def write_bound_ms(lanes: int, steps: int, nsub: int) -> tuple:
+    """(least ms for ``lanes`` x ``steps`` write lane-steps, and which
+    unit bounds it: 'fp32' or 'sfu')."""
+    return bound_ms(lanes * steps, nsub, WRITE_OPS_PER_LANE_STEP)
+
+
+def phase2b(torch, dev, write_census) -> list:
+    """The single-junction write kernel against its plain version on the
+    card, bit-identical, at ``WRITE_CASES``: each timed beside the eager
+    plain version, its operations bound and issue floor."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.llg_write import llg_write_kernel
+
+    log("phase 2b: the write kernel vs ref_llg_write on the card, at every "
+        "write launch of the main path")
+    cases = []
+    for kind, volts, n, dt, down, what in WRITE_CASES:
+        p, m0, v = write_inputs(torch, dev, kind, volts, down)
+        llg_write_kernel(m0, v, p, dt, n, down)      # warm
+        got, ms = cuda_ms(lambda: llg_write_kernel(m0, v, p, dt, n, down))
+        want, plain_ms = cuda_ms(lambda: ref.ref_llg_write(m0, v, p, dt, n,
+                                                           down))
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max((a.float() - b.float()).abs().nan_to_num(0.0).max().item()
+                  for a, b in zip(got, want))
+        tag = (f"{kind} {len(volts)} x {n} steps of {dt * 1e12:g} ps, V = "
+               f"{volts} ({what})")
+        nsub = p.n_sublattices
+        b_ms, unit = write_bound_ms(len(volts), n, nsub)
+        per_step = write_census[nsub]["instructions_per_lane_step"]
+        floor = 1e3 * per_step * len(volts) * n / H100_ISSUE_S
+        log(f"  {tag}: kernel {ms:.3f} ms ({1e3 * ms / n:.3f} us per step), "
+            f"plain {plain_ms:.0f} ms ({1e3 * plain_ms / n:.0f} us per step);"
+            f" bit-identical {same}; switched {got[2].tolist()}; bound "
+            f"{b_ms:.3e} ms ({unit}), issue floor {floor:.3e} ms ({per_step} "
+            f"instructions per lane-step); one thread's chain: "
+            f"{ms / n * 1e6 / per_step:.2f} ns per instruction")
+        if not same:
+            raise AssertionError(f"{tag}: the write kernel disagrees with "
+                                 f"ref_llg_write (max |d| {err})")
+        cases.append(dict(case=tag, kind=kind, lanes=len(volts), steps=n,
+                          ms=ms, us_per_step=1e3 * ms / n, plain_ms=plain_ms,
+                          plain_us_per_step=1e3 * plain_ms / n,
+                          max_abs_err=err, bit_identical=same, bound_ms=b_ms,
+                          bound_unit=unit, issue_floor_ms=floor))
+    return cases
 
 
 def phase3(torch, dev):
@@ -1157,6 +1339,111 @@ def phase5_path(torch, dev) -> dict:
                 n_params=n_params)
 
 
+# --- phase 6: the example twins --------------------------------------------
+
+def hold_number(got: float, want: float, what: str) -> None:
+    """``got`` within ``ANCHOR_RTOL`` of the reference's ``want``; a
+    non-finite ``want`` must be matched by the same non-finite value."""
+    if not math.isfinite(want):
+        if got != want:
+            raise AssertionError(f"{what}: {got}, the reference's {want}")
+    elif not abs(got / want - 1) < ANCHOR_RTOL:
+        raise AssertionError(f"{what}: {got}, the reference's {want} "
+                             f"(rtol {ANCHOR_RTOL})")
+
+
+def hold_twins(qs: dict, cs: dict) -> float:
+    """Every number the twins print against the reference's output of the
+    two examples, and each arch's tiles and decode times against the
+    reference's ``map_all``; returns the largest relative gap."""
+    gaps = []
+
+    def hold(got, want, what):
+        hold_number(got, want, what)
+        if math.isfinite(want):
+            gaps.append(abs(got / want - 1))
+
+    for kind in ("afmtj", "mtj"):
+        ref = REF_QUICKSTART[kind]
+        if qs[kind]["switched"] != ref["switched"]:
+            raise AssertionError(f"quickstart {kind} switched "
+                                 f"{qs[kind]['switched']}, the reference's "
+                                 f"{ref['switched']}")
+        for key in ("latency", "energy"):
+            for i, (g, w) in enumerate(zip(qs[kind][key], ref[key])):
+                hold(g, w, f"quickstart {kind} {key} [{i}]")
+    single = REF_QUICKSTART["single"]
+    if qs["single"]["switched"] != single["switched"]:
+        raise AssertionError("quickstart 1 V write: switched differs")
+    for key in ("latency", "energy"):
+        hold(qs["single"][key], single[key], f"quickstart 1 V {key}")
+    for kind in ("afmtj", "mtj"):
+        if list(cs[kind]) != list(REF_CASE_STUDY[kind]):
+            raise AssertionError(f"case study {kind}: rows {list(cs[kind])}")
+        for name, want in REF_CASE_STUDY[kind].items():
+            for g, w, what in zip(cs[kind][name], want,
+                                  ("speedup", "energy saving")):
+                hold(g, w, f"case study {kind} {name} {what}")
+    if list(cs["map"]) != list(REF_CASE_STUDY["map"]):
+        raise AssertionError(f"case study archs: {list(cs['map'])}")
+    for name, want in REF_CASE_STUDY["map"].items():
+        for g, w, what in zip(cs["map"][name], want,
+                              ("afmtj speedup", "afmtj energy saving",
+                               "mtj speedup")):
+            hold(g, w, f"mapping {name} {what}")
+    if list(cs["decode"]) != list(REF_DECODE):
+        raise AssertionError(f"case study decode archs: {list(cs['decode'])}")
+    for name, (tiles, *t_imc) in REF_DECODE.items():
+        if cs["decode"][name][0] != tiles:
+            raise AssertionError(f"mapping {name}: {cs['decode'][name][0]} "
+                                 f"tiles, the reference's {tiles}")
+        for g, w, what in zip(cs["decode"][name][1:], t_imc,
+                              ("afmtj t_imc", "mtj t_imc")):
+            hold(g, w, f"mapping {name} {what}")
+    return max(gaps)
+
+
+def phase6(torch) -> dict:
+    """Both example twins at full size through their entry points
+    (``run``), every printed number held within ``ANCHOR_RTOL`` of the
+    reference's; the write kernel's counter is set to 0 just before and
+    read just after."""
+    from repro_torch.circuit import subarray
+    from repro_torch.imc.write_path import nominal_pulse
+    from repro_torch.kernels import llg_write
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_imc_case_study
+    import torch_quickstart
+
+    log("phase 6: the example twins at full size (quickstart: 4 voltages x "
+        "16,000 AFMTJ steps and 60,000 MTJ steps; case study: Fig. 4 and "
+        "the ten-arch decode mapping)")
+    subarray._characterize_write.cache_clear()
+    nominal_pulse.cache_clear()
+    llg_write.reset_counts()
+    walls = {}
+    t0 = time.perf_counter()
+    qs = torch_quickstart.run()
+    walls["quickstart"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs = torch_imc_case_study.run()
+    walls["imc_case_study"] = time.perf_counter() - t0
+    launches = llg_write.llg_write_kernel.launches
+    for line in torch_quickstart.report(qs) + [""] + \
+            torch_imc_case_study.report(cs):
+        log("  " + line)
+    log(f"  wall: quickstart {walls['quickstart']:.3f} s, case study "
+        f"{walls['imc_case_study']:.3f} s; write kernel launches {launches}")
+    if launches <= 0:
+        raise AssertionError("the twins never launched the write kernel")
+    gap = hold_twins(qs, cs)
+    log(f"  every printed number within {ANCHOR_RTOL:.0%} of the reference's "
+        f"output, each arch's tiles equal and decode times within "
+        f"{ANCHOR_RTOL:.0%} of its map_all (largest gap {gap:.3e})")
+    return dict(launches=launches, walls=walls, max_rel_gap=gap)
+
+
 def main() -> int:
     import torch
 
@@ -1165,7 +1452,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build, llg_rk4
+    from repro_torch.kernels import build, llg_rk4, llg_write
     from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
 
     t_start = time.perf_counter()
@@ -1173,8 +1460,8 @@ def main() -> int:
     log(f"phase 0: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_build = build.build_many(("llg_rk4", "analog_mac", "fake_analog",
-                                "xnor_gemm"),
+    t_build = build.build_many(("llg_rk4", "llg_write", "analog_mac",
+                                "fake_analog", "xnor_gemm"),
                                {"llg_rk4": llg_rk4.BUILD_DEFINES})
     for name, sec in t_build.items():
         log(f"  nvcc build of {name}.cu: {sec:.1f} s" if sec else
@@ -1191,6 +1478,16 @@ def main() -> int:
     for row in census_rows:
         log("   ", sass_census.describe(row))
     census = {sass_census.key(row): row for row in census_rows}
+    write_census = {row["nsub"]: row for row in sass_census.census_write(
+        *sass_census.disassemble("llg_write"))}
+    log("  SASS census of llg_write.cu (fast path of one step, one thread "
+        "per lane):")
+    for nsub, row in sorted(write_census.items()):
+        log(f"    NSUB={nsub}: {row['instructions_per_lane_step']} "
+            f"instructions per lane-step: {row['classes']}; MUFU "
+            f"{row['mufu_per_step']}; {row.get('registers')} registers, "
+            f"{row.get('spill_stores', 0)}/{row.get('spill_loads', 0)} B "
+            f"spill st/ld")
     cache = ROOT / "build" / "smoke-campaign-cache"
     shutil.rmtree(cache, ignore_errors=True)
     os.environ["REPRO_TORCH_CAMPAIGN_CACHE"] = str(cache)
@@ -1198,7 +1495,15 @@ def main() -> int:
 
     phase1_cases = phase1(torch, dev, census)
     llg_rk4.reset_counts()
+    llg_write.reset_counts()
+    t_phase = time.perf_counter()
     launches_ev = phase2(torch)
+    write_launches_p2 = llg_write.llg_write_kernel.launches
+    log(f"  phase 2: {time.perf_counter() - t_phase:.1f} s; write kernel "
+        f"launches {write_launches_p2}")
+    if write_launches_p2 <= 0:
+        raise AssertionError("phase 2 never launched the write kernel")
+    write = phase2b(torch, dev, write_census)
     main_launches, grid, wall = phase3(torch, dev)
     if main_launches <= 0:
         raise AssertionError("the main path never launched the LLG kernel")
@@ -1216,6 +1521,7 @@ def main() -> int:
     per_fwd = per_forward(analog_shapes, path)
     log_per_forward(per_fwd)
     require_b5_no_slower(analog_shapes)
+    twins = phase6(torch)
 
     record = {"kernels": [{
         "name": "llg_rk4",
@@ -1287,6 +1593,30 @@ def main() -> int:
                                  x["host_us"]["torch.matmul"]))
                 for x in analog_shapes],
         })
+    w = write[2]                # the quickstart's voltages, AFMTJ
+    record["kernels"].append({
+        "name": "llg_write",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/llg_write.cu",
+        # not a pl.pallas_call site: the reference's write is this lax.scan
+        "replaces": "src/repro/core/device.py:143",
+        "launches": twins["launches"],
+        "launches_phase2": write_launches_p2,
+        "max_abs_err": max(c["max_abs_err"] for c in write),
+        "ms": w["ms"],
+        "plain_ms": w["plain_ms"],
+        "bound_ms": w["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,
+        "shape": w["case"],
+        "cases": write,
+        "sass_census": {f"NSUB={k}": dict(
+            per_lane_step=r["instructions_per_lane_step"],
+            classes=r["classes"], mufu=r["mufu_per_step"],
+            registers=r.get("registers"))
+            for k, r in write_census.items()},
+    })
+    record["twins"] = twins
     record["model_path"] = {k: v for k, v in path.items()
                             if k not in ("launches", "reduce_launches",
                                          "launch_shapes")}

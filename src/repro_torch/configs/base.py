@@ -1,8 +1,11 @@
 """Architecture configuration dataclasses (port of ``repro.configs.base``).
 
-The same fields and defaults as the reference, so a config built here and
-one built there describe the same model.  ``MoEConfig`` and ``SSMConfig``
-are plain data: the port's model stack runs dense attention blocks only.
+The same fields, defaults and parameter counts as the reference, so a
+config built here and one built there describe the same model.
+``MoEConfig`` and ``SSMConfig`` are plain data: the port's model stack
+runs dense attention blocks only (the other blocks wait for ROADMAP A9b),
+but ``param_count`` / ``active_param_count`` count every arch, as the
+closed-form decode mapping (``imc.mapping``) needs.
 """
 from __future__ import annotations
 
@@ -72,3 +75,50 @@ class ArchConfig:
             f"{self.name}: n_layers {self.n_layers} not divisible by "
             f"pattern length {len(self.pattern)}")
         return self.n_layers // len(self.pattern)
+
+    def param_count(self) -> int:
+        """Approximate total parameter count (for 6ND roofline math)."""
+        c = self
+        emb = c.vocab * c.d_model * (1 if c.tie_embeddings else 2)
+        per_attn = c.d_model * c.d_head * (c.n_heads + 2 * c.n_kv_heads) + (
+            c.n_heads * c.d_head * c.d_model)
+        per_dense_ffn = 3 * c.d_model * c.d_ff
+        per_mamba = 0
+        if c.ssm is not None:
+            d_in = c.ssm.expand * c.d_model
+            per_mamba = (
+                c.d_model * (2 * d_in + 2 * c.ssm.d_state)  # in_proj(z,x,B,C)
+                + d_in * c.d_model                          # out_proj
+                + d_in * c.ssm.d_conv)                      # conv
+        total = emb
+        reps = self.n_pattern_repeats
+        for mixer, ffn in c.pattern:
+            if mixer.startswith("attn"):
+                total += reps * per_attn
+            elif mixer == "mamba":
+                total += reps * per_mamba
+            if ffn == "dense":
+                total += reps * per_dense_ffn
+            elif ffn == "moe":
+                assert c.moe is not None
+                e = c.moe.num_experts * 3 * c.d_model * c.moe.d_expert
+                if c.moe.shared_expert:
+                    e += 3 * c.d_model * c.moe.d_expert
+                e += c.d_model * c.moe.num_experts  # router
+                total += reps * e
+        if c.n_encoder_layers:
+            # encoder layers + decoder cross-attention
+            total += c.n_encoder_layers * (per_attn + per_dense_ffn)
+            total += c.n_layers * per_attn  # cross-attn in each decoder layer
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of num_experts)."""
+        if self.moe is None:
+            return self.param_count()
+        c = self
+        full_moe = c.moe.num_experts * 3 * c.d_model * c.moe.d_expert
+        act_moe = c.moe.top_k * 3 * c.d_model * c.moe.d_expert
+        n_moe_layers = sum(
+            self.n_pattern_repeats for _, ffn in c.pattern if ffn == "moe")
+        return self.param_count() - n_moe_layers * (full_moe - act_moe)

@@ -1,34 +1,74 @@
-"""Architecture registry of the port: ``get_arch`` and the reduced smoke
-configs (port of ``repro.configs.registry``).
+"""Architecture registry of the port: ``get_arch``, the reduced smoke
+configs and the training microbatch counts (port of
+``repro.configs.registry``).
 
-Only the archs whose blocks the port's model stack runs are registered:
-dense attention decoders.  The reference's other archs need MoE, Mamba,
-encoder-decoder or multimodal blocks, which wait for ROADMAP A9b (and
-with them ``smoke_config``'s reductions of those blocks); asking for one
-raises ``KeyError`` naming that item.
+All ten archs of the reference are registered, as plain data: their
+parameter counts drive the closed-form decode mapping (``imc.mapping``).
+The port's model stack runs dense attention decoders only; building a
+model from an arch with MoE, Mamba or encoder-decoder blocks raises
+``NotImplementedError`` (those blocks wait for ROADMAP A9b).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import qwen2_0_5b
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig
+from repro_torch.configs import (
+    gemma2_2b,
+    internlm2_20b,
+    jamba_1_5_large_398b,
+    llama4_maverick_400b_a17b,
+    mamba2_780m,
+    olmoe_1b_7b,
+    qwen2_0_5b,
+    qwen2_vl_2b,
+    qwen3_8b,
+    seamless_m4t_large_v2,
+)
 
-ARCHS: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in (qwen2_0_5b,)}
+ARCHS: Dict[str, ArchConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (
+        gemma2_2b,
+        internlm2_20b,
+        qwen2_0_5b,
+        qwen3_8b,
+        qwen2_vl_2b,
+        llama4_maverick_400b_a17b,
+        olmoe_1b_7b,
+        seamless_m4t_large_v2,
+        mamba2_780m,
+        jamba_1_5_large_398b,
+    )
+}
+
+# Recommended grad-accumulation microbatch counts for train_4k at the
+# (data=16, model=16) production mesh (DESIGN.md §4).
+TRAIN_MICROBATCHES: Dict[str, int] = {
+    "gemma2-2b": 4,
+    "internlm2-20b": 8,
+    "qwen2-0.5b": 2,
+    "qwen3-8b": 4,
+    "qwen2-vl-2b": 2,
+    "llama4-maverick-400b-a17b": 8,
+    "olmoe-1b-7b": 2,
+    "seamless-m4t-large-v2": 2,
+    "mamba2-780m": 2,
+    "jamba-1.5-large-398b": 16,
+}
 
 
 def get_arch(name: str) -> ArchConfig:
     if name not in ARCHS:
-        raise KeyError(f"arch {name!r} is not in the port; it runs "
-                       f"{sorted(ARCHS)} (the reference's other archs wait "
-                       f"for ROADMAP A9b)")
+        raise KeyError(f"unknown arch {name!r}; choose from {sorted(ARCHS)}")
     return ARCHS[name]
 
 
 def smoke_config(name: str) -> ArchConfig:
-    """Reduced same-family config for CPU tests: small widths and layers,
-    tiny vocab, float32 compute — the reference's ``smoke_config``."""
+    """Reduced same-family config for CPU tests: small widths/layers, tiny
+    vocab, few experts, float32 compute — same pattern and feature flags as
+    the original (the reference's ``smoke_config``)."""
     c = get_arch(name)
     kw = dict(
         name=c.name + "-smoke",
@@ -45,4 +85,20 @@ def smoke_config(name: str) -> ArchConfig:
         opt_state_dtype="float32",
         compute_dtype="float32",
     )
+    if c.moe is not None:
+        kw["moe"] = MoEConfig(
+            num_experts=4,
+            top_k=min(c.moe.top_k, 2),
+            d_expert=64,
+            interleave=c.moe.interleave,
+            shared_expert=c.moe.shared_expert,
+        )
+    if c.ssm is not None:
+        kw["ssm"] = SSMConfig(d_state=16, headdim=16, expand=2, d_conv=4,
+                              chunk=8)
+    if c.attn.mrope_sections is not None:
+        kw["attn"] = dataclasses.replace(c.attn, mrope_sections=(2, 3, 3))
+    if c.attn.sliding_window is not None:
+        att = kw.get("attn", c.attn)
+        kw["attn"] = dataclasses.replace(att, sliding_window=8)
     return dataclasses.replace(c, **kw)

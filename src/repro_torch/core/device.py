@@ -6,12 +6,15 @@ integrates the coupled transport + dynamics system: the instantaneous
 conductance G(theta(t)) sets the current density, which sets the STT
 amplitude a_J(t).  Switching time is the first crossing of the order
 parameter below -0.9; write latency adds the bit-line RC settle time;
-energy is the integral of V^2 G dt over the pulse.
+energy is the integral of V^2 G dt over the pulse.  ``write_sweep`` runs
+every voltage of a sweep as one lane of one integration (paper Fig. 3).
 
-The integration is one junction stepped by plain PyTorch on the chosen
-device, one RK4 step per loop iteration with no host synchronisation.  Time
-accumulates as ``t = t + dt`` in float32 and the crossing is stamped
-``t + dt``, as in the reference's scan.
+The write loop is ``kernels.llg_write.llg_write_kernel``: the CUDA kernel
+``csrc/llg_write.cu`` for CUDA tensors, its plain version
+``kernels.ref.ref_llg_write`` (time accumulated as ``t = t + dt`` in
+float32, the crossing stamped ``t + dt``, as in the reference's scan) for
+CPU tensors.  The pulse tail, RC overhead and latency are the same
+PyTorch operations on either device.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import llg, tmr
-from repro_torch.core.integrator import BASE_DT, rk4_step
+from repro_torch.core.integrator import BASE_DT
 from repro_torch.core.params import DeviceParams
 
 
@@ -64,35 +67,41 @@ def simulate_write(
 ) -> WriteResult:
     """Write (P -> AP: order parameter +z -> -z) at ``voltage``, with the
     STT amplitude re-evaluated from the conductance at every step."""
+    r = write_sweep(p, [float(voltage)], n_steps=n_steps, dt=dt,
+                    theta0=theta0, t_rc=t_rc, pulse_margin=pulse_margin,
+                    down=down, device=device)
+    return WriteResult(*(getattr(r, f.name)[0]
+                         for f in dataclasses.fields(WriteResult)))
+
+
+def write_sweep(
+    p: DeviceParams,
+    voltages,
+    n_steps: int = 30000,
+    dt: float = BASE_DT,
+    theta0: Optional[float] = None,
+    t_rc: float = 40e-12,
+    pulse_margin: float = 1.02,
+    down: bool = True,
+    device=None,
+) -> WriteResult:
+    """Voltage sweep (paper Fig. 3): one write per voltage, all in one
+    integration (one kernel launch on the card); every field of the
+    result has a leading voltage axis."""
+    from repro_torch.kernels.llg_write import llg_write_kernel
+
     dev = resolve_device(device)
-    f32 = torch.float32
+    v = torch.as_tensor(voltages, dtype=torch.float32).reshape(-1).to(dev)
     th0 = thermal_theta0(p) if theta0 is None else theta0
     m0 = llg.initial_state(p, theta0=th0, phi0=0.3, up=down, device=dev)
-    v = torch.tensor(float(voltage), dtype=f32, device=dev)
-    v2 = v * v
-    dt_t = torch.tensor(dt, dtype=f32, device=dev)
-    zero = torch.zeros((), dtype=f32, device=dev)
-
-    m = m0
-    t = torch.zeros((), dtype=f32, device=dev)
-    t_sw = torch.full((), float("inf"), dtype=f32, device=dev)
-    sw = torch.zeros((), dtype=torch.bool, device=dev)
-    en = torch.zeros((), dtype=f32, device=dev)
-    for _ in range(int(n_steps)):
-        a_j = a_j_from_voltage(v, m, p)
-        m = rk4_step(lambda mm, tt: llg.llg_rhs(mm, p, a_j), m, 0.0, dt)
-        opz = llg.order_parameter_z(m)
-        crossed = opz < -0.9 if down else opz > 0.9
-        t_next = t + dt_t
-        t_sw = torch.where(crossed & ~sw, t_next, t_sw)
-        sw = sw | crossed
-        g = tmr.conductance(m, p)
-        en = en + torch.where(sw, zero, v2 * g * dt_t)
-        t = t_next
+    m0 = m0.expand(v.shape[0], *m0.shape).contiguous()
+    m, t_sw, sw, en = llg_write_kernel(m0, v, p, dt, n_steps, down)
 
     # write pulse = switching time * margin; energy already integrated up to
     # the switch, add the margin tail at the post-switch conductance and the
     # RC/driver overhead at the initial (parallel-state) conductance
+    v2 = v * v
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     g_final = tmr.conductance(m, p)
     tail = (pulse_margin - 1.0) * t_sw
     tail = torch.where(torch.isfinite(tail), tail, zero)
@@ -101,6 +110,12 @@ def simulate_write(
     latency = t_sw * pulse_margin + t_rc
     return WriteResult(t_switch=t_sw, write_latency=latency, energy=energy,
                        switched=sw, final_state=m)
+
+
+def simulate_read(p: DeviceParams, m: torch.Tensor, v_read: float = 0.1):
+    """Read op: sense current at ``v_read``; returns (current, resistance)."""
+    g = tmr.conductance(m, p)
+    return llg.const(v_read, g) * g, llg.const(1.0, g) / g
 
 
 def read_energy(p: DeviceParams, t_read: float = 1e-9, v_read: float = 0.1) -> float:

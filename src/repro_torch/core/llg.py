@@ -122,6 +122,18 @@ def llg_rhs(m: torch.Tensor, p: DeviceParams, a_j: torch.Tensor,
     return (t + const(p.alpha, m) * mcross(t)) / denom
 
 
+def neel_vector(m: torch.Tensor) -> torch.Tensor:
+    """Neel (staggered) vector n = (m1 - m2)/2 for the AFMTJ; m for the MTJ."""
+    if m.shape[-2] == 1:
+        return m[..., 0, :]
+    return 0.5 * (m[..., 0, :] - m[..., 1, :])
+
+
+def net_moment(m: torch.Tensor) -> torch.Tensor:
+    """Net magnetization (m1 + m2)/2 — near zero for a compensated AFM."""
+    return torch.mean(m, dim=-2)
+
+
 def order_parameter_z(m: torch.Tensor) -> torch.Tensor:
     """z-component of the order parameter used for switching detection."""
     if m.shape[-2] == 1:

@@ -24,3 +24,18 @@ def conductance_from_cos(cos_theta: torch.Tensor, p: DeviceParams) -> torch.Tens
 def conductance(m: torch.Tensor, p: DeviceParams) -> torch.Tensor:
     """Instantaneous junction conductance [S] from the state (..., n_sub, 3)."""
     return conductance_from_cos(order_parameter_z(m), p)
+
+
+def resistance(m: torch.Tensor, p: DeviceParams) -> torch.Tensor:
+    g = conductance(m, p)
+    return const(1.0, g) / g
+
+
+def tmr_ratio(p: DeviceParams) -> float:
+    """(R_AP - R_P)/R_P as modeled — equals ``p.tmr`` by construction."""
+    return (p.r_antiparallel - p.r_parallel) / p.r_parallel
+
+
+def read_margin(p: DeviceParams, v_read: float = 0.1) -> float:
+    """Sense current differential Delta_I = V (G_P - G_AP) at read voltage."""
+    return v_read * (1.0 / p.r_parallel - 1.0 / p.r_antiparallel)

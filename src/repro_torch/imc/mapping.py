@@ -1,14 +1,26 @@
-"""Functional read-path accuracy of an architecture's decode projection
-(port of the accuracy half of ``repro.imc.mapping``): one decode-step
-projection computed through ``imc.analog_pipeline`` and scored against the
-float32 matmul, and the accuracy-vs-adc_bits-vs-TMR surface, projection
-level or, with ``model=``, model level (``imc.model_analog``).
+"""Map LM-architecture decode onto the AFMTJ IMC hierarchy (port of
+``repro.imc.mapping``).
 
-The closed-form latency/energy mapping of the reference module and
-``write_energy_accuracy_surface`` wait for ROADMAP A8b.
+The closed-form latency/energy mapping: decode-step inference is dominated
+by weight-stationary GEMVs (every active parameter is one MAC), tiled over
+``XBAR`` x ``XBAR`` crossbars with 8-bit weights bit-sliced over
+``CELLS_PER_WEIGHT_8B`` cells, ``IMC_PARALLEL_ARRAYS`` arrays working at
+once at the main-memory level; against the Cortex-A72's streaming GEMV,
+plus the 1-bit (XNOR) variant of each IMC target.  ``map_all`` maps every
+arch of a registry for both device kinds on ``imc.hierarchy``'s
+subarray timings (the device write solve of ``circuit.subarray``).
+
+The functional read-path accuracy of an arch's decode projection: one
+decode-step projection computed through ``imc.analog_pipeline`` and scored
+against the float32 matmul, and the accuracy-vs-adc_bits-vs-TMR surface,
+projection level or, with ``model=``, model level (``imc.model_analog``).
+
+The fault-repair yield model and ``write_energy_accuracy_surface`` wait
+for ROADMAP A4b + A8b.
 """
 from __future__ import annotations
 
+import dataclasses
 import zlib
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -16,6 +28,81 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.imc.cpu_model import CORTEX_A72, CPUModel
+
+XBAR = 512                      # crossbar dimension (MM-level subarrays)
+IMC_PARALLEL_ARRAYS = 1024      # arrays operating concurrently at MM (PiM)
+ADC_E_PER_COL = 2.0e-12         # 6-bit column ADC energy [J]
+ADC_T = 0.5e-9                  # per-tile conversion time (pipelined) [s]
+CELLS_PER_WEIGHT_8B = 8         # bit-sliced int8: one cell per weight bit
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchMapResult:
+    arch: str
+    t_cpu: float
+    e_cpu: float
+    t_imc: float
+    e_imc: float
+    t_imc_bnn: float
+    e_imc_bnn: float
+    tiles: float = 0.0           # XBAR^2 crossbar tiles, 8-bit mapping
+    tiles_bnn: float = 0.0       # tiles for the binarized (1 cell/weight) map
+
+    @property
+    def speedup(self):
+        return self.t_cpu / self.t_imc
+
+    @property
+    def energy_saving(self):
+        return self.e_cpu / self.e_imc
+
+
+def map_arch_decode(cfg: ArchConfig, hier,
+                    cpu: CPUModel = CORTEX_A72) -> ArchMapResult:
+    """One decode token of ``cfg`` on the MM level of ``hier`` (an
+    ``imc.hierarchy.IMCHierarchy``) against ``cpu``."""
+    n = cfg.active_param_count()
+    tm = hier.levels["MM"].timings
+
+    # CPU baseline: memory-bound GEMV stream (int8 weights)
+    t_cpu = max(n * 1.0 / cpu.bw_dram,                      # 1 B/param traffic
+                n * 0.125 / (cpu.ipc * cpu.freq_hz))        # SIMD MACs
+    e_cpu = (n / cpu.line_bytes) * cpu.e_dram_line + n * 0.02e-12
+
+    # crossbar tiles of XBAR x XBAR cells, 8 cells per 8-bit weight
+    tiles = n * CELLS_PER_WEIGHT_8B / (XBAR * XBAR)
+    waves = tiles / IMC_PARALLEL_ARRAYS                     # sequential waves
+    t_tile = tm.t_read + ADC_T                              # analog GEMV + ADC
+    t_wb = tm.t_write                  # activation write-back per tile group
+    t_imc = waves * (t_tile + t_wb * 0.1)                   # writes pipelined
+    e_mac = tm.e_read_bit                                   # per-cell read
+    e_imc = (n * CELLS_PER_WEIGHT_8B * e_mac
+             + tiles * XBAR * ADC_E_PER_COL                 # column ADCs
+             + tiles * XBAR * tm.e_write_bit * 0.02)        # activation writes
+
+    # 1-bit (XNOR) variant: 1 cell/weight, 8x fewer tiles, no ADC
+    tiles_b = n / (XBAR * XBAR)
+    waves_b = tiles_b / IMC_PARALLEL_ARRAYS
+    t_imc_bnn = waves_b * (tm.t_logic2 + tm.t_write * 0.1)
+    e_imc_bnn = n * tm.e_logic_bit + tiles_b * XBAR * tm.e_write_bit * 0.02
+
+    return ArchMapResult(cfg.name, t_cpu, e_cpu, t_imc, e_imc,
+                         t_imc_bnn, e_imc_bnn, tiles=tiles, tiles_bnn=tiles_b)
+
+
+def map_all(archs: Dict[str, ArchConfig], device=None
+            ) -> Dict[str, Dict[str, ArchMapResult]]:
+    """``{kind: {arch: ArchMapResult}}`` for both device kinds."""
+    from repro_torch.imc.hierarchy import build_hierarchy
+
+    dev = resolve_device(device)
+    out = {}
+    for kind in ("afmtj", "mtj"):
+        hier = build_hierarchy(kind, device=dev)
+        out[kind] = {name: map_arch_decode(cfg, hier)
+                     for name, cfg in archs.items()}
+    return out
 
 
 def decode_projection_shapes(cfg: ArchConfig, cap_k: int = 512,

@@ -2,11 +2,16 @@
 
   noise    — stateless counter-RNG (lowbias32 + Box-Muller), the uint32
              stream of ``repro.kernels.noise`` bit for bit
-  ref      — ``ref_llg_rk4``: the plain PyTorch LLG integrator, the
-             kernel's CPU path and its comparison target on the card
+  ref      — ``ref_llg_rk4`` / ``ref_llg_write``: the plain PyTorch LLG
+             campaign integrator and single-junction write, the kernels'
+             CPU paths and their comparison targets on the card
   llg_rk4  — ``llg_rk4_kernel``: wrapper of the CUDA kernel
              ``csrc/llg_rk4.cu`` (replaces the Pallas ``_llg_kernel`` and
              ``_llg_thermal_kernel``)
+  llg_write
+           — ``llg_write_kernel``: wrapper of the single-junction write
+             kernel ``csrc/llg_write.cu`` (the reference's write scan);
+             both LLG sources share the RK4 step of ``csrc/llg_step.cuh``
   bitline_mac
            — wrapper of the bit-line MAC (B3), a float32 split-K mainloop
              in ``csrc/analog_mac.cu``

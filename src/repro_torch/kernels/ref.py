@@ -14,6 +14,12 @@ only when every lane of the whole block is done, so past a finished group
 its rows 0-5 keep moving; row 7 (first crossing) is the same either way,
 and with a single group the two are identical.
 
+``ref_llg_write`` is the single-junction write loop of
+``core.device.simulate_write`` (the reference's ``lax.scan`` in
+``repro.core.device``) over a batch of lanes, one per drive voltage, at a
+fixed horizon with the self-consistent a_J; it is what
+``llg_write.llg_write_kernel`` runs for CPU tensors.
+
 ``ref_bitline_mac``, ``ref_xnor_gemm`` and ``ref_fake_analog`` are the plain
 versions of the analog MAC kernels (``csrc/analog_mac.cu``,
 ``csrc/xnor_gemm.cu``, ``csrc/fake_analog.cu``), mirroring the
@@ -134,6 +140,50 @@ def ref_llg_rk4(
                 m, crossed = step(c * chunk + j, m, crossed, frozen)
     sub2 = m[:, 1, :].T if n_sub == 2 else torch.zeros_like(m[:, 0, :].T)
     return torch.cat([m[:, 0, :].T, sub2, v[None], crossed[None]], dim=0)
+
+
+def ref_llg_write(
+    m0: torch.Tensor,             # (lanes, n_sub, 3) f32 initial states
+    voltages: torch.Tensor,       # (lanes,) f32 drive voltages
+    p: DeviceParams,
+    dt: float,
+    n_steps: int,
+    down: bool = True,
+) -> tuple:
+    """Advance ``lanes`` junctions ``n_steps`` RK4 steps, the STT amplitude
+    re-evaluated from the conductance at every step (a_J = pref ((V G)/A),
+    the order of ``core.device.a_j_from_voltage``).  Per step: t = t + dt
+    in float32; the first step whose order parameter crosses -0.9 (``down``)
+    or +0.9 stamps ``t + dt``; the energy adds V^2 G dt until the lane has
+    switched.  Returns ``(m, t_switch, switched, energy)``: the final
+    ``(lanes, n_sub, 3)`` state, ``(lanes,)`` float32 (inf where no crossing),
+    bool and float32."""
+    from repro_torch.core.device import a_j_from_voltage
+
+    f32 = torch.float32
+    dev = m0.device
+    lanes = m0.shape[0]
+    v = voltages.to(f32)
+    v2 = v * v
+    dt_t = llg.const(dt, m0)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    m = m0
+    t = torch.zeros((), dtype=f32, device=dev)
+    t_sw = torch.full((lanes,), float("inf"), dtype=f32, device=dev)
+    sw = torch.zeros((lanes,), dtype=torch.bool, device=dev)
+    en = torch.zeros((lanes,), dtype=f32, device=dev)
+    for _ in range(int(n_steps)):
+        a_j = a_j_from_voltage(v, m, p)
+        m = rk4_step(lambda mm, tt: llg.llg_rhs(mm, p, a_j), m, 0.0, dt)
+        opz = llg.order_parameter_z(m)
+        crossed = opz < -0.9 if down else opz > 0.9
+        t_next = t + dt_t
+        t_sw = torch.where(crossed & ~sw, t_next, t_sw)
+        sw = sw | crossed
+        g = tmr.conductance(m, p)
+        en = en + torch.where(sw, zero, v2 * g * dt_t)
+        t = t_next
+    return m, t_sw, sw, en
 
 
 def ref_bitline_mac(v, g, adc_bits: int = 0, i_max=1.0):

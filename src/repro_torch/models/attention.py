@@ -6,8 +6,9 @@ chunked online-softmax path, and the output projection.
 The arithmetic mirrors the reference's jnp step by step (einsums, float32
 scores, additive -1e30 mask, softmax cast back to the compute dtype), so
 the port compares with it operation by operation; it deliberately does
-not call a fused attention operator.  Decode with a KV cache, cross and
-encoder attention wait for ROADMAP A10.
+not call a fused attention operator.  Cross and encoder attention, like
+the port's other unported blocks, wait for ROADMAP A9b; decode with a KV
+cache waits for A10.
 """
 from __future__ import annotations
 

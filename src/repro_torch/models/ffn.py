@@ -1,5 +1,6 @@
 """Gated dense feed-forward layer (SwiGLU / GeGLU), port of the dense part
-of ``repro.models.ffn``.  Mixture-of-Experts waits for ROADMAP A9b."""
+of ``repro.models.ffn``.  Mixture-of-Experts, like the port's other
+unported blocks, waits for ROADMAP A9b."""
 from __future__ import annotations
 
 from typing import Dict

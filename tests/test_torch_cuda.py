@@ -452,3 +452,62 @@ def test_fake_counts_of_a_call(dev, shape, split):
     kern = fa.fake_analog_kernel
     assert (kern.launches, kern.reduce_launches) == (4, 4 * int(split))
     assert kern.launch_shapes == {(m, k, n): 4}
+
+
+# --- the single-junction write kernel (csrc/llg_write.cu) -------------------
+# (kind, voltages, n_steps, dt, down): the quickstart's voltages at a
+# horizon past the 1 V switch, high-voltage batches that switch early, and
+# the reverse write; bit-identical to ref.ref_llg_write
+WRITE_CASES = [("afmtj", (0.5, 0.8, 1.0, 1.2), 3000, 0.05e-12, True),
+               ("mtj", (0.5, 0.8, 1.0, 1.2), 14000, 0.1e-12, True),
+               ("afmtj", (2.0, 3.0, 4.0), 600, 0.1e-12, True),
+               ("mtj", (4.0, 12.0, 20.0), 1200, 0.1e-12, True),
+               ("afmtj", (-2.0, -4.0), 600, 0.1e-12, False),
+               ("mtj", (-8.0,), 2500, 0.1e-12, False),
+               ("afmtj", tuple(0.5 + 0.05 * i for i in range(37)), 400,
+                0.1e-12, True)]
+
+
+@pytest.mark.parametrize("kind,volts,n,dt,down", WRITE_CASES)
+def test_write_kernel_bit_identical(dev, kind, volts, n, dt, down):
+    from repro_torch.core import llg
+    from repro_torch.kernels.llg_write import llg_write_kernel
+
+    p = AFMTJ_PARAMS if kind == "afmtj" else MTJ_PARAMS
+    m0 = llg.initial_state(p, theta0=0.2, phi0=0.3, up=down, device=dev)
+    m0 = m0.expand(len(volts), *m0.shape).contiguous()
+    v = torch.tensor(volts, dtype=torch.float32, device=dev)
+    before = llg_write_kernel.launches
+    got = llg_write_kernel(m0, v, p, dt, n, down)
+    torch.cuda.synchronize()
+    assert llg_write_kernel.launches == before + 1
+    want = ref.ref_llg_write(m0, v, p, dt, n, down)
+    for a, b in zip(got, want):
+        assert a.device == b.device and torch.equal(a, b)
+
+
+def test_write_sweep_launches_once(dev):
+    from repro_torch.core.device import simulate_write, write_sweep
+    from repro_torch.kernels import llg_write
+
+    llg_write.reset_counts()
+    r = write_sweep(AFMTJ_PARAMS, (0.5, 1.0, 1.2), n_steps=3000, dt=0.05e-12,
+                    device=dev)
+    assert llg_write.llg_write_kernel.launches == 1
+    one = simulate_write(AFMTJ_PARAMS, 1.0, n_steps=3000, dt=0.05e-12,
+                         device=dev)
+    assert llg_write.llg_write_kernel.launches == 2
+    assert torch.equal(one.energy, r.energy[1])
+    assert torch.equal(one.t_switch, r.t_switch[1])
+
+
+def test_write_kernel_rejects_bad_inputs(dev):
+    from repro_torch.kernels.llg_write import llg_write_kernel
+
+    v = torch.ones(2, device=dev)
+    with pytest.raises(ValueError):
+        llg_write_kernel(torch.zeros(2, 1, 3, device=dev), v, AFMTJ_PARAMS,
+                         1e-13, 10)
+    with pytest.raises(ValueError):
+        llg_write_kernel(torch.zeros(2, 2, 3, device=dev), v[:1],
+                         AFMTJ_PARAMS, 1e-13, 10)

@@ -27,8 +27,12 @@ def _port_modules():
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "torch_model_accuracy_study.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "examples" / f"{name}.py" for name in TWINS]
+
+
+TWINS = ("torch_model_accuracy_study", "torch_quickstart",
+         "torch_imc_case_study")
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
@@ -51,13 +55,15 @@ def test_no_jax_or_reference_imports(path):
 
 def test_every_module_imports_with_jax_blocked():
     mods = _port_modules()
-    assert len(mods) >= 45, mods
+    assert len(mods) >= 55, mods
     for m in ("repro_torch.configs.registry", "repro_torch.models.model",
               "repro_torch.models.attention", "repro_torch.imc.faults",
               "repro_torch.imc.analog_pipeline", "repro_torch.imc.mapping",
               "repro_torch.imc.model_analog", "repro_torch.kernels.bitline_mac",
               "repro_torch.kernels.xnor_gemm",
-              "repro_torch.kernels.fake_analog"):
+              "repro_torch.kernels.fake_analog",
+              "repro_torch.kernels.llg_write", "repro_torch.configs.olmoe_1b_7b",
+              "repro_torch.configs.jamba_1_5_large_398b"):
         assert m in mods, m
     code = (
         "import sys\n"
@@ -79,7 +85,9 @@ def test_every_module_imports_with_jax_blocked():
 def _entry_points():
     from repro_torch.campaign import CampaignGrid, run_campaign, run_ensemble
     from repro_torch.circuit.subarray import make_subarray
-    from repro_torch.core.device import simulate_write
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.device import simulate_write, write_sweep
+    from repro_torch.imc.mapping import map_all
     from repro_torch.core.params import AFMTJ_PARAMS
     from repro_torch.imc.evaluate import evaluate_system
     from repro_torch.imc.hierarchy import build_hierarchy
@@ -105,11 +113,29 @@ def _entry_points():
             "afmtj", cols=4, n_rows=1, use_cache=False),
         "simulate_write": lambda: simulate_write(AFMTJ_PARAMS, 1.0,
                                                  n_steps=10),
+        "write_sweep": lambda: write_sweep(AFMTJ_PARAMS, [0.5, 1.0],
+                                           n_steps=10),
+        "map_all": lambda: map_all(ARCHS),
+        "torch_quickstart.run": lambda: _twin("torch_quickstart").run(
+            afmtj_steps=10, mtj_steps=10),
+        "torch_imc_case_study.run": lambda: _twin(
+            "torch_imc_case_study").run(),
         "make_subarray": lambda: make_subarray("afmtj"),
         "build_hierarchy": lambda: build_hierarchy("afmtj"),
         "evaluate_system": lambda: evaluate_system("afmtj"),
         **_analog_entry_points(),
     }
+
+
+def _twin(name):
+    """The example twin ``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _analog_entry_points():
@@ -146,6 +172,8 @@ def _analog_entry_points():
 @pytest.mark.parametrize("name", sorted([
     "run_ensemble", "run_campaign", "wer_margined_pulse", "write_verify",
     "write_verify_nominal", "measured_write_timings", "simulate_write",
+    "write_sweep", "map_all", "torch_quickstart.run",
+    "torch_imc_case_study.run",
     "make_subarray", "build_hierarchy", "evaluate_system",
     "program_weights", "binary_matmul", "mvm_accuracy", "fake_analog_matmul",
     "program_weights_cached", "analog_model_logits", "model_accuracy",
@@ -161,7 +189,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(name):
 def test_kernel_wrapper_rejects_other_devices():
     from repro_torch.core.params import AFMTJ_PARAMS
     from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
+    from repro_torch.kernels.llg_write import llg_write_kernel
 
     with pytest.raises(ValueError):
         llg_rk4_kernel(torch.zeros(8, 512, device="meta"), AFMTJ_PARAMS,
                        1e-13, 1)
+    with pytest.raises(ValueError):
+        llg_write_kernel(torch.zeros(1, 2, 3, device="meta"),
+                         torch.ones(1, device="meta"), AFMTJ_PARAMS, 1e-13, 1)

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import ARCHS as j_archs
 from repro.configs.registry import smoke_config as j_smoke_config
 from repro.imc import analog_pipeline as jap
 from repro.imc import model_analog as jma
@@ -74,13 +75,13 @@ def port_surface(shared):
 
 
 def test_configs_match_reference():
-    t = dataclasses.asdict(registry.smoke_config("qwen2-0.5b"))
-    j = dataclasses.asdict(j_smoke_config("qwen2-0.5b"))
-    assert t == j
-    assert dataclasses.asdict(registry.get_arch("qwen2-0.5b")) == \
-        dataclasses.asdict(jma.get_arch("qwen2-0.5b"))
-    with pytest.raises(KeyError, match="A9b"):
-        registry.get_arch("gemma2-2b")
+    assert list(registry.ARCHS) == list(j_archs)
+    for name in j_archs:
+        t = dataclasses.asdict(registry.smoke_config(name))
+        j = dataclasses.asdict(j_smoke_config(name))
+        assert t == j, name
+        assert dataclasses.asdict(registry.get_arch(name)) == \
+            dataclasses.asdict(jma.get_arch(name)), name
     with pytest.raises(KeyError):
         registry.get_arch("no-such-arch")
 

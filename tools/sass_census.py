@@ -41,6 +41,7 @@ ROOT = Path(__file__).resolve().parents[1]
 INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 TEMPLATE = re.compile(
     r"llg_rk4_kernelILb(\d)ELb(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)E")
+WRITE_TEMPLATE = re.compile(r"llg_write_kernelILi(\d)E")
 PRED = re.compile(r"^@(!?)(U?P[T0-9]+)\s+")
 HEX = re.compile(r"0x([0-9a-f]+)")
 
@@ -264,23 +265,45 @@ def census(sass: str, log: str = "") -> list:
     return rows
 
 
+def census_write(sass: str, log: str = "") -> list:
+    """One row per instance (NSUB) of the single-junction write kernel
+    (``csrc/llg_write.cu``, one thread per lane): its step loop's fast
+    path, as ``census`` counts the LLG kernel's."""
+    resources = ptxas_resources(log)
+    rows = []
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        m = WRITE_TEMPLATE.search(name)
+        if not m:
+            continue
+        ins = [Ins(int(a, 16), t) for a, t in INSTR.findall(part)]
+        loop = fast_path(ins)[-1]
+        rows.append(dict(
+            nsub=int(m[1]), instructions_per_lane_step=loop["length"],
+            classes=loop["classes"], mufu_per_step=loop["mufu"],
+            instructions=len(ins), **resources.get(name, {})))
+    return rows
+
+
 def key(row: dict) -> tuple:
     return (row["thermal"], row["variation"], row["nsub"], row["tpl"],
             row["cluster"], row["produce"])
 
 
-def disassemble() -> tuple:
-    """(SASS, ptxas log) of the current build of llg_rk4.cu."""
+def disassemble(name: str = "llg_rk4") -> tuple:
+    """(SASS, ptxas log) of the current build of ``csrc/<name>.cu``
+    (``llg_rk4`` or ``llg_write``)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.llg_rk4 import BUILD_DEFINES
 
-    build.build("llg_rk4", BUILD_DEFINES)
-    lib = build.library_path("llg_rk4", BUILD_DEFINES)
+    defines = BUILD_DEFINES if name == "llg_rk4" else ()
+    build.build(name, defines)
+    lib = build.library_path(name, defines)
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
-    return sass, build.build_log("llg_rk4", BUILD_DEFINES)
+    return sass, build.build_log(name, defines)
 
 
 def describe(row: dict) -> str:
