@@ -115,9 +115,47 @@ Phases (any failure raises and the script exits non-zero):
    and MTJ decode time (within 1%) are held too, against the reference's
    ``map_all`` (``REF_DECODE``).
 
+7. Process corners and the measured read path (DESIGN.md §9-§10) at full
+   size, through their entry points, with the LLG and write kernels'
+   counters set to 0 before and read after: ``wer_margined_pulse`` over
+   tt/ss/ff for both kinds, ``write_verify_corners("afmtj", 4096, ...)``,
+   ``read_disturb_campaign`` for both kinds, ``derive_refresh_policy``
+   for the AFMTJ (a retention campaign of 3 corners x 3 accelerations to
+   4 ns and the disturb fit, 40,001-step launches on the log horizon
+   ladder) and the MTJ's retention campaign (to 8 ns, 40,001 steps) and
+   disturb fit (20,001 steps; the MTJ does not escape within them, so
+   the fit raises, as the reference's does),
+   ``evaluate_system(kind, write_percentile=99.0, read_percentile=99.0,
+   offset_sigma=5e-3)`` for both kinds and, for the AFMTJ, with
+   ``refresh=policy``, the ss sample's 1 V write (the write kernel's
+   conductance factor), and both twins
+   (``examples/torch_variation_study.py``, ``torch_retention_study.py``)
+   at full size.  Fails unless the path launched both kernels, the LLG
+   kernel's VARIATION=1 instance among them, and its outputs check out
+   (pulses on the ladder and no shorter than the nominal ones, the slow
+   corner retrying more, a finite AFMTJ refresh interval, AFMTJ ahead of
+   MTJ on every workload with measured reads, the scrub costing time and
+   energy).  Then the ss writes are held bit for bit against
+   ``ref_llg_write`` over 16,000 / 40,000 steps, and each new LLG launch
+   family (the corner WER ladders, the ss write-verify round, the disturb
+   campaigns, the disturb fits, the retention campaigns), recorded as the
+   path launched it, is held in two parts, each in every layout: its
+   first ``TRUNC_STEPS`` steps against the eager plain version, its whole
+   horizon against the kernel's C1T1 layout, bit for bit; the whole
+   horizon is timed C1T1 against the rule's layout in turns under
+   ``NO_SLOWER``, beside its operations bound and issue floor.  The twins'
+   numbers are held against the reference's output
+   (``REF_VARIATION_STUDY``, ``REF_RETENTION_STUDY``,
+   ``tools/ref_study_numbers.py``): deterministic ones within 1%,
+   Monte-Carlo ones within 3 standard errors of a difference of two
+   estimates at the study's sample count (binomial for counts and rates,
+   1 / sqrt(escapes) in ln for escape times, propagated to the fits), the
+   margined pulses on the same rung or one off.
+
 Each kernel's launch counter is set to 0 before its main-path run (phases
 2-3 for the LLG kernel, with its launches by layout, 2 and 6 for the
-write kernel, 5b for the analog kernels) and read after it (the
+write kernel, 5b for the analog kernels, and both in phase 7) and read
+after it (the
 analog wrappers count their mainloop launches under ``launches``, and the
 split-K reduce pass a split call adds under ``reduce_launches``); the
 second-to-last line is the per-kernel JSON record and the last line
@@ -127,6 +165,7 @@ cache internally) so no result can skip the kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -245,10 +284,13 @@ OPS_PER_LANE_STEP = {2: (606, 36), 1: (317, 20)}
 # the deterministic kernel (THERMAL = false): no noise and no thermal-field
 # adds in the right-hand sides, no Box-Muller square roots (llg_rk4.cu)
 OPS_PER_LANE_STEP_DET = {2: (540, 33), 1: (272, 17)}
+# the variation instance adds the a_J x g_scale multiply
+OPS_PER_LANE_STEP_VAR = {2: (607, 36), 1: (318, 20)}
 # The single-junction write kernel (csrc/llg_write.cu, its header note
 # gives the breakdown): float32 operations per lane-step and MUFU (one per
-# IEEE division and sqrtf), by sublattice count
-WRITE_OPS_PER_LANE_STEP = {2: (543, 33), 1: (277, 17)}
+# IEEE division and sqrtf), by sublattice count; the conductance factor's
+# two multiplies included
+WRITE_OPS_PER_LANE_STEP = {2: (545, 33), 1: (279, 17)}
 # phase 2b: (kind, voltages, steps, dt, down, what), each held
 # bit-identical against ref_llg_write and timed: every write launch of the
 # main path (phase 2's _characterize_write, whose AFMTJ solve is also the
@@ -376,13 +418,14 @@ def layout_tag(layout) -> str:
 
 
 def issue_floor_ms(census: dict, lane_steps: int, thermal: bool, nsub: int,
-                   layout, chunked: bool = True) -> float:
+                   layout, chunked: bool = True,
+                   variation: bool = False) -> float:
     """Least milliseconds for ``lane_steps`` at the card's issue rate: the
     census's fast-path instructions per lane-step of the instance this
     launch runs, x lane-steps, over 132 x 4 x 32 x 1.98e9 per second."""
     c, t, prod = layout
     cluster = thermal and chunked and c > 1
-    row = census[(thermal, False, nsub, t, cluster, bool(prod))]
+    row = census[(thermal, variation, nsub, t, cluster, bool(prod))]
     return 1e3 * row["instructions_per_lane_step"] * lane_steps / H100_ISSUE_S
 
 
@@ -570,19 +613,24 @@ def phase2(torch):
     return launches
 
 
-def write_inputs(torch, dev, kind: str, volts, down: bool):
+def write_inputs(torch, dev, kind: str, volts, down: bool, sample=None):
     """The write kernel's inputs as ``core.device.write_sweep`` builds
     them: the initial state on the host's formula (``llg.initial_state`` at
-    the Boltzmann tilt), one lane per voltage."""
+    the Boltzmann tilt), one lane per voltage; with a ``DeviceSample``, its
+    parameters, its volume-adjusted tilt and its conductance factor."""
     from repro_torch.core import llg
     from repro_torch.core.device import thermal_theta0
     from repro_torch.imc.write_margin import params_for
 
-    p = params_for(kind)
-    m0 = llg.initial_state(p, theta0=thermal_theta0(p), phi0=0.3, up=down,
-                           device=dev)
+    p = params_for(kind) if sample is None else sample.params
+    th0 = thermal_theta0(p, None if sample is None
+                         else sample.thermal_stability)
+    m0 = llg.initial_state(p, theta0=th0, phi0=0.3, up=down, device=dev)
     m0 = m0.expand(len(volts), *m0.shape).contiguous()
-    return p, m0, torch.tensor(volts, dtype=torch.float32, device=dev)
+    gs = (None if sample is None else
+          torch.full((len(volts),), sample.g_scale, dtype=torch.float32,
+                     device=dev))
+    return p, m0, torch.tensor(volts, dtype=torch.float32, device=dev), gs
 
 
 def write_bound_ms(lanes: int, steps: int, nsub: int) -> tuple:
@@ -595,42 +643,50 @@ def phase2b(torch, dev, write_census) -> list:
     """The single-junction write kernel against its plain version on the
     card, bit-identical, at ``WRITE_CASES``: each timed beside the eager
     plain version, its operations bound and issue floor."""
+    log("phase 2b: the write kernel vs ref_llg_write on the card, at every "
+        "write launch of the main path")
+    return [hold_write(torch, dev, write_census, *case)
+            for case in WRITE_CASES]
+
+
+def hold_write(torch, dev, write_census, kind, volts, n, dt, down, what,
+               sample=None) -> dict:
+    """One write launch held bit-identical against ``ref_llg_write`` over
+    its whole horizon (with a ``DeviceSample``: its parameters and
+    conductance factor) and timed beside the eager plain version, its
+    operations bound and issue floor."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.llg_write import llg_write_kernel
 
-    log("phase 2b: the write kernel vs ref_llg_write on the card, at every "
-        "write launch of the main path")
-    cases = []
-    for kind, volts, n, dt, down, what in WRITE_CASES:
-        p, m0, v = write_inputs(torch, dev, kind, volts, down)
-        llg_write_kernel(m0, v, p, dt, n, down)      # warm
-        got, ms = cuda_ms(lambda: llg_write_kernel(m0, v, p, dt, n, down))
-        want, plain_ms = cuda_ms(lambda: ref.ref_llg_write(m0, v, p, dt, n,
-                                                           down))
-        same = all(torch.equal(a, b) for a, b in zip(got, want))
-        err = max((a.float() - b.float()).abs().nan_to_num(0.0).max().item()
-                  for a, b in zip(got, want))
-        tag = (f"{kind} {len(volts)} x {n} steps of {dt * 1e12:g} ps, V = "
-               f"{volts} ({what})")
-        nsub = p.n_sublattices
-        b_ms, unit = write_bound_ms(len(volts), n, nsub)
-        per_step = write_census[nsub]["instructions_per_lane_step"]
-        floor = 1e3 * per_step * len(volts) * n / H100_ISSUE_S
-        log(f"  {tag}: kernel {ms:.3f} ms ({1e3 * ms / n:.3f} us per step), "
-            f"plain {plain_ms:.0f} ms ({1e3 * plain_ms / n:.0f} us per step);"
-            f" bit-identical {same}; switched {got[2].tolist()}; bound "
-            f"{b_ms:.3e} ms ({unit}), issue floor {floor:.3e} ms ({per_step} "
-            f"instructions per lane-step); one thread's chain: "
-            f"{ms / n * 1e6 / per_step:.2f} ns per instruction")
-        if not same:
-            raise AssertionError(f"{tag}: the write kernel disagrees with "
-                                 f"ref_llg_write (max |d| {err})")
-        cases.append(dict(case=tag, kind=kind, lanes=len(volts), steps=n,
-                          ms=ms, us_per_step=1e3 * ms / n, plain_ms=plain_ms,
-                          plain_us_per_step=1e3 * plain_ms / n,
-                          max_abs_err=err, bit_identical=same, bound_ms=b_ms,
-                          bound_unit=unit, issue_floor_ms=floor))
-    return cases
+    p, m0, v, gs = write_inputs(torch, dev, kind, volts, down, sample)
+    llg_write_kernel(m0, v, p, dt, n, down, gs)      # warm
+    got, ms = cuda_ms(lambda: llg_write_kernel(m0, v, p, dt, n, down, gs))
+    want, plain_ms = cuda_ms(lambda: ref.ref_llg_write(m0, v, p, dt, n, down,
+                                                       gs))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max((a.float() - b.float()).abs().nan_to_num(0.0).max().item()
+              for a, b in zip(got, want))
+    tag = (f"{kind} {len(volts)} x {n} steps of {dt * 1e12:g} ps, V = "
+           f"{volts} ({what})")
+    nsub = p.n_sublattices
+    b_ms, unit = write_bound_ms(len(volts), n, nsub)
+    per_step = write_census[nsub]["instructions_per_lane_step"]
+    floor = 1e3 * per_step * len(volts) * n / H100_ISSUE_S
+    log(f"  {tag}: kernel {ms:.3f} ms ({1e3 * ms / n:.3f} us per step), "
+        f"plain {plain_ms:.0f} ms ({1e3 * plain_ms / n:.0f} us per step);"
+        f" bit-identical {same}; switched {got[2].tolist()}; bound "
+        f"{b_ms:.3e} ms ({unit}), issue floor {floor:.3e} ms ({per_step} "
+        f"instructions per lane-step); one thread's chain: "
+        f"{ms / n * 1e6 / per_step:.2f} ns per instruction")
+    if not same:
+        raise AssertionError(f"{tag}: the write kernel disagrees with "
+                             f"ref_llg_write (max |d| {err})")
+    return dict(case=tag, kind=kind, lanes=len(volts), steps=n, ms=ms,
+                us_per_step=1e3 * ms / n, plain_ms=plain_ms,
+                plain_us_per_step=1e3 * plain_ms / n, max_abs_err=err,
+                bit_identical=same, bound_ms=b_ms, bound_unit=unit,
+                issue_floor_ms=floor,
+                g_scale=None if sample is None else sample.g_scale)
 
 
 def phase3(torch, dev):
@@ -705,10 +761,11 @@ def hold_at_shape(dev, kind: str, grid, what: str, census) -> dict:
 
 
 def hold_launch(shape: dict, out_p, ms_p: float, what: str,
-                census) -> dict:
-    """Hold every layout of the kernel on ``shape`` against the plain
-    output ``out_p`` (computed once, in ``ms_p``) and time each; then time
-    C = 1, T = 1 and the rule's layout in turns."""
+                census, against: str = "plain") -> dict:
+    """Hold every layout of the kernel on ``shape`` against the output
+    ``out_p`` of ``against`` (the plain version, computed once in
+    ``ms_p``, or the kernel's C1T1 layout) and time each; then time C =
+    1, T = 1 and the rule's layout in turns."""
     import torch
 
     from repro_torch.campaign.engine import EARLY_EXIT_CHUNK
@@ -729,14 +786,17 @@ def hold_launch(shape: dict, out_p, ms_p: float, what: str,
     out_k = run(rule)
     tag = f"{kind} {what}: {lanes} lanes x {shape['steps']} steps"
     err = compare(out_k, out_p, n_kernel, f"{tag} (horizon {n_kernel}, rule "
-                  f"layout {layout_tag(rule)}; plain {ms_p:.0f} ms)")
+                  f"layout {layout_tag(rule)}; {against} {ms_p:.0f} ms)")
     sweep = sweep_layouts(run, out_p, n_kernel, nsub, prods, tag)
     ms_old, ms_new = in_turns(run, (1, 1, 0), rule)
     steps, longest = executed_lane_steps(out_k, kw["step_budget"], n_kernel,
                                          EARLY_EXIT_CHUNK, CELL_TILE)
-    b_ms, unit = bound_ms(steps, nsub)
-    floor_old = issue_floor_ms(census, steps, True, nsub, (1, 1, 0))
-    floor_new = issue_floor_ms(census, steps, True, nsub, rule)
+    var = kw.get("lane_params") is not None
+    b_ms, unit = bound_ms(steps, nsub,
+                          OPS_PER_LANE_STEP_VAR if var else OPS_PER_LANE_STEP)
+    floor_old = issue_floor_ms(census, steps, True, nsub, (1, 1, 0),
+                               variation=var)
+    floor_new = issue_floor_ms(census, steps, True, nsub, rule, variation=var)
     log(f"    in turns: C1T1 {ms_old:.3f} ms, {layout_tag(rule)} "
         f"{ms_new:.3f} ms ({ms_old / ms_new:.2f}x"
         f"{'' if ms_new <= NO_SLOWER * ms_old else ', SLOWER'}); "
@@ -1444,6 +1504,626 @@ def phase6(torch) -> dict:
     return dict(launches=launches, walls=walls, max_rel_gap=gap)
 
 
+# --- phase 7: process corners and the measured read path -----------------------
+
+# the reference's own output of examples/variation_study.py and
+# examples/retention_study.py at full size (src/repro, CPU), unrounded, as
+# tools/ref_study_numbers.py prints it: per kind and D2D sigma the worst-T
+# WER at the shortest rung and the margined pulse [s]; the retention
+# campaign's reductions per (corner, T, accel), the disturb fit (with the
+# escapes per rung of its campaign) and its p1 table, the refresh policy
+# and Fig. 4 with and without the scrub
+REF_VARIATION_STUDY = {'sigmas': [0.0, 0.1, 0.2],
+ 'n_samples': 64,
+ 'afmtj': {'wer_short': [0.25, 0.25, 0.328125],
+           'pulse': [2.5e-10, 2.75e-10, 2.75e-10]},
+ 'mtj': {'wer_short': [0.15625, 0.234375, 0.375],
+         'pulse': [2e-09, 2.2e-09, 2.5e-09]}}
+REF_RETENTION_STUDY = {'retention': {'corners': ['tt', 'ss', 'ff'],
+               'shape': [3, 1, 3],
+               'accel_factors': [0.05, 0.1, 0.15],
+               'temperatures': [300.0],
+               'n_samples': 256,
+               'n_steps': 40001,
+               'delta_eff': [2.0000000000000004,
+                             4.000000000000001,
+                             6.000000000000001,
+                             2.0900000000000007,
+                             4.1800000000000015,
+                             6.2700000000000005,
+                             1.9110000000000011,
+                             3.8220000000000023,
+                             5.733000000000001],
+               'tau_acc': [1.4798707112970711e-09,
+                           2.8885648484848493e-08,
+                           math.inf,
+                           1.4384526970954357e-09,
+                           2.8014329411764713e-08,
+                           math.inf,
+                           1.422708230452675e-09,
+                           2.0820177777777784e-08,
+                           2.540891250000001e-07],
+               'n_flips': [239, 33, 0, 241, 34, 0, 243, 45, 4],
+               'slope': [1.4856950764137034,
+                         1.4206450354058924,
+                         1.3907123119081721],
+               'tau_op': [53039176.17410868,
+                          282445695.054979,
+                          9587756.455402568],
+               'worst_tau_op': 9587756.455402568},
+ 'disturb': {'accel_factor': 0.1,
+             'delta_acc': 4.000000000000001,
+             'v_c': 0.32855042016806724,
+             'beta': 3.1124614780994873,
+             'sse': 0.010040885359547388,
+             'voltages': [0.0, 0.05, 0.1, 0.15],
+             'tau_meas': [4.060497083333334e-08,
+                          6.784176724137933e-09,
+                          2.9334555e-09,
+                          1.3430020080321287e-09],
+             'flips': [24, 116, 200, 249],
+             'n_samples': 256,
+             'tau0': 2.2532920979643326e-10,
+             'delta_eff': [32.89764809682422,
+                           23.92776185479718,
+                           12.926287294537754,
+                           5.994488244664807],
+             'p1': [1.1452109044004869e-14,
+                    9.004457918910878e-11,
+                    5.399283041774112e-06,
+                    0.005515424240555824]},
+ 'refresh': {'interval': 4.104652582477029e-06,
+             'limited_by': 'disturb',
+             'tau_retention': 9587756.455402568,
+             'p1_read': 2.436259781515342e-10,
+             'reads_max': 4.104652582477029,
+             'ber_budget': 1e-09,
+             'reads_per_cell_s': 1000000.0,
+             'summarize': [14.939246898721372, 17.41633381712113],
+             'summarize_refresh': [11.65053540466181, 8.129833387637573],
+             'share': {'bnn': [0.05795583187544131, 0.04412363866865831],
+                       'mat_add': [0.6502391071955498,
+                                   0.9379629366599821]}}}
+# the first steps of each long launch held against the eager plain version
+# (3.6 ms a step on the card, whatever the lanes); the whole horizon is
+# held against the kernel's C1T1 layout
+TRUNC_STEPS = 4001
+# Monte-Carlo holds: two independent estimates of the same quantity differ
+# by at most MC_SIGMAS standard errors of their difference
+MC_SIGMAS = 3.0
+# the slice's corners: tt / ss / ff (core/params)
+PATH_CORNERS = ("tt", "ss", "ff")
+
+
+class LaunchRecorder:
+    """The campaign engine's kernel entry with a record: every launch made
+    while ``tag`` is set keeps a copy of its inputs under that tag (the
+    launch itself goes through unchanged and is counted as ever)."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.tag = None
+        self.launches = {}
+
+    def __call__(self, state, p, dt, n_steps, switch_threshold=0.9, **kw):
+        if self.tag is not None:
+            assert switch_threshold == 0.9, switch_threshold
+            self.launches.setdefault(self.tag, []).append(dict(
+                state=state.clone(), p=p, dt=dt, n_kernel=n_steps,
+                kw={k: v.clone() if hasattr(v, "clone") else v
+                    for k, v in kw.items()}))
+        return self.kernel(state, p, dt, n_steps, switch_threshold, **kw)
+
+
+def phase7_path(torch, rec) -> dict:
+    """The slice's path at full size through its entry points: the
+    corner-margined pulses, the corner write-verify, the disturb campaigns,
+    the refresh policies, Fig. 4 with measured reads and the scrub, the
+    slow corner's write, and both twins.  The LLG and write kernels'
+    counters are set to 0 just before and read just after."""
+    from repro_torch.circuit import subarray
+    from repro_torch.core.device import simulate_write
+    from repro_torch.core.params import PROCESS_CORNERS, VariationSpec
+    from repro_torch.imc import evaluate, read_path, write_margin, write_path
+    from repro_torch.imc.write_margin import params_for
+    from repro_torch.kernels import llg_rk4, llg_write
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_retention_study
+    import torch_variation_study
+
+    log("phase 7: process corners and the measured read path at full size")
+    spec = VariationSpec(corners=tuple(PROCESS_CORNERS[c]
+                                       for c in PATH_CORNERS))
+    for f in (write_margin.wer_margined_pulse,
+              write_path.measured_write_timings, write_path.nominal_pulse,
+              subarray._characterize_write, read_path.measured_read_timings,
+              read_path.derive_refresh_policy):
+        f.cache_clear()
+    llg_rk4.reset_counts()
+    llg_write.reset_counts()
+    t0 = time.perf_counter()
+    walls, out = {}, dict(pulse={}, refresh={}, fig4={}, corner_write={})
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        r = fn()
+        walls[name] = time.perf_counter() - t
+        return r
+
+    for kind in ("afmtj", "mtj"):
+        rec.tag = f"{kind} corner WER ladder"
+        out["pulse"][kind] = timed(f"wer_margined_pulse {kind} tt/ss/ff",
+                                   lambda: write_margin.wer_margined_pulse(
+                                       kind, 1.0, 1e-2, use_cache=False,
+                                       variation=spec))
+    rec.tag = "afmtj corner write-verify"
+    wv = timed("write_verify_corners afmtj 4096 tt/ss/ff",
+               lambda: write_path.write_verify_corners(
+                   "afmtj", 4096, write_path.WritePolicy(use_cache=False),
+                   spec))
+    disturb = {}
+    for kind in ("afmtj", "mtj"):
+        rec.tag = f"{kind} disturb campaign"
+        disturb[kind] = timed(f"read_disturb_campaign {kind}",
+                              lambda: read_path.read_disturb_campaign(
+                                  kind, use_cache=False))
+    rec.tag = "afmtj refresh policy"
+    pol = timed("derive_refresh_policy afmtj",
+                lambda: read_path.derive_refresh_policy("afmtj",
+                                                        use_cache=False))
+    out["refresh"] = pol
+    # the MTJ's accelerated barriers (Delta_eff 2.25-6.75 at a ~10x slower
+    # attempt time) do not escape within 8 ns: its retention campaign
+    # measures no escape, and its disturb fit raises as the reference's
+    # does, so no MTJ scrub interval is derived (and none charged)
+    rec.tag = "mtj retention"
+    ret_mtj = timed("retention_campaign mtj",
+                    lambda: read_path.retention_campaign("mtj",
+                                                         use_cache=False))
+    out["mtj_retention_escapes"] = int(ret_mtj.n_flips.sum())
+    rec.tag = "mtj disturb fit"
+    try:
+        timed("fit_disturb_model mtj", lambda: read_path.fit_disturb_model(
+            "mtj", use_cache=False))
+        out["mtj_fit"] = "fitted"
+    except ValueError as e:
+        out["mtj_fit"] = str(e)
+    rec.tag = "evaluate_system"
+    read_kw = dict(write_percentile=99.0, read_percentile=99.0,
+                   offset_sigma=5e-3)
+    for kind in ("afmtj", "mtj"):
+        out["fig4"][kind] = timed(
+            f"evaluate_system {kind} p99 write + p99 read",
+            lambda: evaluate.evaluate_system(kind, **read_kw))
+    out["fig4"]["afmtj+scrub"] = timed(
+        "evaluate_system afmtj p99 write + p99 read + scrub",
+        lambda: evaluate.evaluate_system("afmtj", refresh=pol, **read_kw))
+    rec.tag = None
+    for kind in ("afmtj", "mtj"):
+        p = params_for(kind)
+        n, dt = (16000, 0.05e-12) if kind == "afmtj" else (40000, 0.1e-12)
+        before = llg_write.llg_write_kernel.launches
+        w = timed(f"simulate_write {kind} 1 V ss sample",
+                  lambda: simulate_write(p, 1.0, n_steps=n, dt=dt, t_rc=0.0,
+                                         variation=spec.sample_device(p, 1)))
+        if llg_write.llg_write_kernel.launches != before + 1:
+            raise AssertionError("the corner write did not launch the write "
+                                 "kernel")
+        out["corner_write"][kind] = (float(w.t_switch), float(w.energy))
+    rec.tag = "variation twin"
+    twin_var = timed("torch_variation_study.run",
+                     lambda: torch_variation_study.run(use_cache=False))
+    rec.tag = "retention twin"
+    twin_ret = timed("torch_retention_study.run",
+                     lambda: torch_retention_study.run(use_cache=False))
+    rec.tag = None
+    wall = time.perf_counter() - t0
+    launches = llg_rk4.llg_rk4_kernel.launches
+    layouts = dict(llg_rk4.llg_rk4_kernel.launch_layouts)
+    write_launches = llg_write.llg_write_kernel.launches
+    for name, sec in walls.items():
+        log(f"  {name}: {sec:.2f} s")
+    log(f"  phase 7 path: {wall:.1f} s; LLG launches {launches}, write "
+        f"kernel launches {write_launches}")
+    by_layout = {f"{cells} lanes, NSUB={nsub}, {layout_tag(lay[:3])}, "
+                 f"VARIATION={lay[3]}": k for (cells, nsub, *lay), k in
+                 sorted(layouts.items())}
+    log(f"  LLG launches of phase 7 by layout: {by_layout}")
+    if launches <= 0 or write_launches <= 0:
+        raise AssertionError("phase 7 never launched the LLG or the write "
+                             "kernel")
+    if not any(key[-1] == 1 for key in layouts):
+        raise AssertionError("phase 7 never launched the VARIATION=1 "
+                             "instance of the LLG kernel")
+    check_phase7(out, wv, disturb)
+    return dict(wall_s=wall, walls=walls, launches=launches,
+                write_launches=write_launches, launch_layouts=by_layout,
+                twins=dict(variation=twin_var, retention=twin_ret),
+                pulse=out["pulse"], corner_write=out["corner_write"],
+                refresh=dataclasses.asdict(out["refresh"]),
+                mtj_retention_escapes=out["mtj_retention_escapes"],
+                mtj_fit=out["mtj_fit"],
+                corner_write_verify={
+                    name: dict(attempts_mean=r.attempts_mean,
+                               residual_ber=r.residual_ber, rounds=r.rounds,
+                               energy_mean=r.energy_mean())
+                    for name, r in wv.items()})
+
+
+def check_phase7(out, wv, disturb) -> None:
+    """What the path returned, by the repo's own means: pulses on the
+    ladder and no shorter than the nominal ones, the slow corner retrying
+    more, a finite AFMTJ refresh interval, no MTJ escape in its window
+    (and its fit refused, as the reference's is), AFMTJ ahead of MTJ on
+    every workload with measured reads, the scrub costing AFMTJ time and
+    energy, disturb probabilities in [0, 1]."""
+    from repro_torch.imc.write_margin import _LADDERS, wer_margined_pulse
+
+    for kind, pulse in out["pulse"].items():
+        nominal = wer_margined_pulse(kind, 1.0, 1e-2, use_cache=False)
+        log(f"  {kind} margined pulse over tt/ss/ff: {pulse * 1e12:.0f} ps "
+            f"(nominal {nominal * 1e12:.0f} ps)")
+        if pulse not in _LADDERS[kind] or pulse < nominal:
+            raise AssertionError(f"{kind}: corner pulse {pulse} vs nominal "
+                                 f"{nominal}")
+    for name, r in wv.items():
+        log(f"  write_verify_corners afmtj {name}: attempts "
+            f"{r.attempts_mean:.4f}, rounds {r.rounds}, residual BER "
+            f"{r.residual_ber:.3g}, energy {r.energy_mean() * 1e15:.3f} fJ")
+    if not wv["ss"].attempts_mean > wv["ff"].attempts_mean:
+        raise AssertionError("the slow corner did not retry more than the "
+                             "fast one")
+    pol = out["refresh"]
+    log(f"  derive_refresh_policy afmtj: {pol}")
+    if not (0.0 < pol.interval < math.inf
+            and pol.limited_by in ("retention", "disturb")):
+        raise AssertionError(f"refresh policy {pol}")
+    log(f"  retention_campaign mtj: {out['mtj_retention_escapes']} escapes "
+        f"in its 8 ns window; fit_disturb_model mtj: {out['mtj_fit']}")
+    if out["mtj_retention_escapes"] or "no zero-bias escapes" not in \
+            out["mtj_fit"]:
+        raise AssertionError("the MTJ escaped within its window")
+    a, m = out["fig4"]["afmtj"], out["fig4"]["mtj"]
+    s = out["fig4"]["afmtj+scrub"]
+    for name in a:
+        log(f"    {name:14s} AFMTJ speedup {a[name].speedup:8.3f}x, energy "
+            f"saving {a[name].energy_saving:8.3f}x; with the scrub "
+            f"{s[name].speedup:8.3f}x / {s[name].energy_saving:8.3f}x "
+            f"({100 * s[name].t_refresh / s[name].t_imc:.2f}% of t_imc); "
+            f"MTJ {m[name].speedup:8.3f}x / {m[name].energy_saving:8.3f}x")
+        if not (a[name].speedup > m[name].speedup
+                and a[name].energy_saving > m[name].energy_saving):
+            raise AssertionError(f"{name}: AFMTJ does not beat MTJ")
+        if not (s[name].t_refresh > 0 and s[name].t_imc > a[name].t_imc
+                and s[name].e_imc > a[name].e_imc):
+            raise AssertionError(f"{name}: no scrub charged")
+    for kind, d in disturb.items():
+        s = d.disturb_surface()
+        log(f"  read_disturb_campaign {kind}: p1 (T, V, pulse) max "
+            f"{s.max():.4f}, at 0.1 V {s[:, 0].max():.4f}")
+        if s.shape != (2, 4, 3) or not ((s >= 0) & (s <= 1)).all():
+            raise AssertionError(f"{kind}: disturb surface {s.shape}")
+    for kind, (t_sw, en) in out["corner_write"].items():
+        log(f"  simulate_write {kind} ss sample: t_switch {t_sw * 1e12:.2f} "
+            f"ps, energy {en * 1e15:.3f} fJ")
+        if not (math.isfinite(t_sw) and en > 0):
+            raise AssertionError(f"{kind}: the ss write did not switch")
+
+
+def phase7_launches(rec) -> list:
+    """(kind, what, recorded launch) of every new launch family: the
+    corner WER ladders, the ss corner's first write-verify round, the
+    disturb campaigns, and the refresh policies' retention campaigns and
+    disturb fits."""
+    fams = []
+    for kind in ("afmtj", "mtj"):
+        fams.append((kind, "corner WER ladder",
+                     rec.launches[f"{kind} corner WER ladder"][0]))
+    rounds = rec.launches["afmtj corner write-verify"]
+    ss = next(r for r in rounds if r["state"].shape[1] == 4096
+              and bool((r["kw"]["lane_params"][2, 0] != 1.0).item()))
+    fams.append(("afmtj", "ss write-verify round", ss))
+    for kind in ("afmtj", "mtj"):
+        fams.append((kind, "disturb campaign",
+                     rec.launches[f"{kind} disturb campaign"][0]))
+    retention, fit = rec.launches["afmtj refresh policy"][:2]
+    fams += [("afmtj", "disturb fit (log horizon)", fit),
+             ("afmtj", "retention (log horizon)", retention),
+             ("mtj", "disturb fit (log horizon)",
+              rec.launches["mtj disturb fit"][0]),
+             ("mtj", "retention (log horizon)",
+              rec.launches["mtj retention"][0])]
+    return fams
+
+
+def hold_long(kind: str, what: str, launch: dict, census) -> dict:
+    """A launch of the slice's path held in two parts, each in every
+    layout and timed C1T1 against the rule's layout in turns
+    (``hold_launch``): its first ``TRUNC_STEPS`` steps against the eager
+    plain version, and its whole horizon against the kernel's C1T1
+    layout, bit for bit.  Returns the whole horizon's record."""
+    from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
+
+    kw = launch["kw"]
+    shape = dict(kind=kind, p=launch["p"], dt=launch["dt"],
+                 steps=int(kw["step_budget"].max().item()),
+                 n_kernel=launch["n_kernel"], state=launch["state"], kw=kw)
+    trunc = dict(shape, n_kernel=min(shape["n_kernel"], TRUNC_STEPS))
+    out_p, ms_p = plain_output(trunc)
+    held = hold_launch(trunc, out_p, ms_p,
+                       f"{what}, first {trunc['n_kernel']} steps", census)
+    out_c1, ms_c1 = cuda_ms(lambda: llg_rk4_kernel(
+        shape["state"], shape["p"], shape["dt"], shape["n_kernel"], **kw,
+        layout=(1, 1, 0)))
+    full = hold_launch(shape, out_c1, ms_c1, f"{what}, whole horizon",
+                       census, against="C1T1")
+    return dict(full, variation=kw.get("lane_params") is not None,
+                plain_ms=ms_p, plain_steps=trunc["n_kernel"],
+                max_abs_err=max(full["max_abs_err"], held["max_abs_err"]),
+                truncated=held)
+
+
+def phase7_holds(torch, dev, rec, census, write_census) -> tuple:
+    """The corner writes bit for bit against ``ref_llg_write`` over their
+    whole horizons, and every new LLG launch family (``hold_long``)."""
+    from repro_torch.core.params import PROCESS_CORNERS, VariationSpec
+    from repro_torch.imc.write_margin import params_for
+
+    log("phase 7 holds: the ss corner's writes (g_scale) vs ref_llg_write, "
+        "and every new LLG launch family")
+    ss = VariationSpec(corners=(PROCESS_CORNERS["ss"],))
+    writes = [hold_write(torch, dev, write_census, kind, (1.0,), n, dt, True,
+                         "ss sample", ss.sample_device(params_for(kind)))
+              for kind, n, dt in (("afmtj", 16000, 0.05e-12),
+                                  ("mtj", 40000, 0.1e-12))]
+    shapes = [hold_long(kind, what, launch, census)
+              for kind, what, launch in phase7_launches(rec)]
+    return writes, shapes
+
+
+def _mc_hold(ok: bool, what: str, got, want, bound: str):
+    log(f"    {what}: {got!r} (reference {want!r}; {bound})"
+        f"{'' if ok else ' -- OUTSIDE'}")
+    if not ok:
+        raise AssertionError(f"{what}: {got!r}, the reference's {want!r} "
+                             f"({bound})")
+
+
+def hold_variation_twin(res: dict) -> None:
+    """The variation twin against the reference's output: deterministic
+    numbers equal, each worst-T WER within MC_SIGMAS binomial standard
+    errors of a difference of two 64-sample estimates at the reference's
+    rate, each margined pulse on the same rung or one rung off."""
+    from torch_variation_study import LADDERS
+
+    ref = REF_VARIATION_STUDY
+    if res["sigmas"] != ref["sigmas"] or res["n_samples"] != ref["n_samples"]:
+        raise AssertionError("variation twin: another size than the "
+                             "reference's")
+    n = ref["n_samples"]
+    for kind in ("afmtj", "mtj"):
+        if res[kind]["launches"] != 1:
+            raise AssertionError(f"variation twin {kind}: "
+                                 f"{res[kind]['launches']} launches")
+        rungs = list(LADDERS[kind][0])
+        for i, s in enumerate(ref["sigmas"]):
+            w, g = ref[kind]["wer_short"][i], res[kind]["wer_short"][i]
+            q = min(max(w, 1.0 / n), 1.0 - 1.0 / n)
+            b = MC_SIGMAS * math.sqrt(2.0 * q * (1.0 - q) / n)
+            _mc_hold(abs(g - w) <= b, f"variation twin {kind} sigma {s:g} "
+                     f"worst-T WER", g, w, f"|d| <= {b:.3f}")
+            pw, pg = ref[kind]["pulse"][i], res[kind]["pulse"][i]
+            if math.isnan(pw) or math.isnan(pg):
+                ok = math.isnan(pw) and math.isnan(pg)
+                off = 0
+            else:
+                off = abs(rungs.index(pg) - rungs.index(pw))
+                ok = off <= 1
+            _mc_hold(ok, f"variation twin {kind} sigma {s:g} margined pulse",
+                     pg, pw, "the same rung or one off")
+            if off == 1:
+                log(f"      one rung off: the pulse is the first rung whose "
+                    f"worst-T WER <= 5e-2 at 64 samples, and a WER "
+                    f"estimate's standard error there (~0.027) spans one "
+                    f"rung's WER step")
+
+
+def _log_bound(k_a: float, k_b: float) -> float:
+    """MC_SIGMAS standard errors of ln(tau_a / tau_b) for two
+    censored-exponential MLEs from k_a and k_b escapes."""
+    return MC_SIGMAS * math.sqrt(1.0 / k_a + 1.0 / k_b)
+
+
+def hold_retention_twin(res: dict) -> None:
+    """The retention twin against the reference's output.  Deterministic
+    numbers (Delta_eff, the nominal Fig. 4) within ANCHOR_RTOL; escape
+    counts within MC_SIGMAS binomial standard errors (+1 for the count's
+    discreteness); escape times, tau0 / tau_op, the free Arrhenius slope,
+    the disturb fit's suppression at its rungs and everything downstream
+    (p1, the scrub interval, Fig. 4 with the scrub) within MC_SIGMAS
+    standard errors propagated from the escape counts (a censored
+    exponential MLE from k escapes has ln-standard error 1 / sqrt(k))."""
+    import numpy as np
+
+    ref_r, got_r = REF_RETENTION_STUDY["retention"], res["retention"]
+    for key in ("corners", "shape", "accel_factors", "temperatures",
+                "n_samples", "n_steps"):
+        if got_r[key] != ref_r[key]:
+            raise AssertionError(f"retention twin {key}: {got_r[key]} vs "
+                                 f"{ref_r[key]}")
+    if got_r["launches"] != 1:
+        raise AssertionError(f"retention twin: {got_r['launches']} launches")
+    n = ref_r["n_samples"]
+    n_c, n_t, n_f = ref_r["shape"]
+    for i, (g, w) in enumerate(zip(got_r["delta_eff"], ref_r["delta_eff"])):
+        hold_number(g, w, f"retention twin Delta_eff [{i}]")
+    kg = np.array(got_r["n_flips"], float)
+    kr = np.array(ref_r["n_flips"], float)
+    for i in range(kg.size):
+        b = MC_SIGMAS * math.sqrt(kg[i] * (n - kg[i]) / n
+                                  + kr[i] * (n - kr[i]) / n) + 1.0
+        _mc_hold(abs(kg[i] - kr[i]) <= b, f"retention twin escapes [{i}]",
+                 int(kg[i]), int(kr[i]), f"|d| <= {b:.1f}")
+        if kg[i] >= 3 and kr[i] >= 3:
+            b = _log_bound(kg[i], kr[i])
+            g, w = got_r["tau_acc"][i], ref_r["tau_acc"][i]
+            _mc_hold(abs(math.log(g / w)) <= b, f"retention twin tau_acc "
+                     f"[{i}]", g, w, f"|d ln| <= {b:.3f}")
+    d_eff = np.array(ref_r["delta_eff"]).reshape(n_c, n_t, n_f)
+    worst_b = 0.0
+    for ci in range(n_c):
+        for ti in range(n_t):
+            sl = slice((ci * n_t + ti) * n_f, (ci * n_t + ti + 1) * n_f)
+            okg, okr = kg[sl] >= 3, kr[sl] >= 3
+            b = _log_bound(kg[sl][okg].sum(), kr[sl][okr].sum())
+            worst_b = max(worst_b, b)
+            g, w = got_r["tau_op"][ci * n_t + ti], ref_r["tau_op"][ci * n_t
+                                                                  + ti]
+            _mc_hold(abs(math.log(g / w)) <= b, f"retention twin tau_op "
+                     f"{ref_r['corners'][ci]}", g, w, f"|d ln| <= {b:.3f}")
+            x = d_eff[ci, ti]
+
+            def s_xx(k, ok):
+                xm = np.average(x[ok], weights=k[ok])
+                return float((k[ok] * (x[ok] - xm) ** 2).sum())
+
+            b = MC_SIGMAS * math.sqrt(1 / s_xx(kg[sl], okg)
+                                      + 1 / s_xx(kr[sl], okr))
+            g = got_r["slope"][ci * n_t + ti]
+            w = ref_r["slope"][ci * n_t + ti]
+            _mc_hold(abs(g - w) <= b, f"retention twin Arrhenius slope "
+                     f"{ref_r['corners'][ci]}", g, w, f"|d| <= {b:.3f}")
+    _mc_hold(abs(math.log(got_r["worst_tau_op"] / ref_r["worst_tau_op"]))
+             <= worst_b, "retention twin worst tau_op", got_r["worst_tau_op"],
+             ref_r["worst_tau_op"], f"|d ln| <= {worst_b:.3f}")
+
+    ref_d, got_d = REF_RETENTION_STUDY["disturb"], res["disturb"]
+    if got_d["voltages"] != ref_d["voltages"]:
+        raise AssertionError("disturb fit: another voltage ladder")
+    hold_number(got_d["accel_factor"], ref_d["accel_factor"],
+                "disturb fit accel")
+    hold_number(got_d["delta_acc"], ref_d["delta_acc"], "disturb fit Delta")
+    k = ref_d["flips"]
+    for i, (g, w) in enumerate(zip(got_d["tau_meas"], ref_d["tau_meas"])):
+        if k[i] >= 3:
+            b = _log_bound(k[i], k[i])
+            _mc_hold(abs(math.log(g / w)) <= b, f"disturb fit tau at "
+                     f"{ref_d['voltages'][i]:g} V", g, w, f"|d ln| <= {b:.3f}")
+    # the fitted suppression at each biased rung: s_i = ln(tau_i/tau_0) /
+    # Delta_acc has standard error sqrt(1/k_i + 1/k_0) / Delta_acc
+    sig_s = {}
+    for i, v in enumerate(ref_d["voltages"]):
+        if v > 0 and k[i] >= 3:
+            sig_s[v] = math.sqrt(1.0 / k[i] + 1.0 / k[0]) / ref_d["delta_acc"]
+
+            def s_fit(d):
+                return (1.0 - v / d["v_c"]) ** d["beta"]
+
+            b = MC_SIGMAS * math.sqrt(2.0) * sig_s[v]
+            _mc_hold(abs(s_fit(got_d) - s_fit(ref_d)) <= b,
+                     f"disturb fit s({v:g} V) from V_c, beta",
+                     s_fit(got_d), s_fit(ref_d), f"|d| <= {b:.3f}")
+    log(f"    disturb fit V_c {got_d['v_c']:.4f} V, beta {got_d['beta']:.3f}"
+        f" (reference {ref_d['v_c']:.4f} V, {ref_d['beta']:.3f}; held "
+        f"through s(V) above: V_c and beta trade off along the fit's "
+        f"valley)")
+    k0 = sum(k for k, v in zip(kr[:n_f], ref_r["accel_factors"]) if k >= 3)
+    volts = (0.02, 0.05, 0.10, 0.15)
+    p1_b = {}
+    for v, g_de, w_de, g_p1, w_p1 in zip(volts, got_d["delta_eff"],
+                                         ref_d["delta_eff"], got_d["p1"],
+                                         ref_d["p1"]):
+        sig = sig_s.get(v, sig_s[min(sig_s)])
+        b_de = MC_SIGMAS * math.sqrt(2.0) * 40.0 * sig
+        _mc_hold(abs(g_de - w_de) <= b_de, f"disturb Delta_eff at {v:g} V",
+                 g_de, w_de, f"|d| <= {b_de:.2f}")
+        p1_b[v] = MC_SIGMAS * math.sqrt(2.0 * (40.0 * sig) ** 2 + 2.0 / k0)
+        _mc_hold(abs(math.log(g_p1 / w_p1)) <= p1_b[v], f"disturb p1 at "
+                 f"{v:g} V", g_p1, w_p1, f"|d ln| <= {p1_b[v]:.2f}")
+
+    ref_f, got_f = REF_RETENTION_STUDY["refresh"], res["refresh"]
+    if got_f["limited_by"] != ref_f["limited_by"]:
+        raise AssertionError(f"refresh policy limited by "
+                             f"{got_f['limited_by']}, the reference's "
+                             f"{ref_f['limited_by']}")
+    for i, (g, w) in enumerate(zip(got_f["summarize"], ref_f["summarize"])):
+        hold_number(g, w, f"Fig. 4 average without scrub [{i}]")
+    b = p1_b[0.05]
+    for key in ("p1_read", "interval", "reads_max"):
+        _mc_hold(abs(math.log(got_f[key] / ref_f[key])) <= b,
+                 f"refresh {key}", got_f[key], ref_f[key],
+                 f"|d ln| <= {b:.2f}, the bound of p1 at 0.05 V")
+    _mc_hold(abs(math.log(got_f["tau_retention"] / ref_f["tau_retention"]))
+             <= worst_b, "refresh tau_retention", got_f["tau_retention"],
+             ref_f["tau_retention"], f"|d ln| <= {worst_b:.3f}")
+    # Fig. 4 with the scrub: the reference's numbers must be what the
+    # port's Fig. 4 gives at some interval within the interval's bound
+    from repro_torch.imc.evaluate import evaluate_system, summarize
+    from repro_torch.imc.read_path import RefreshPolicy
+
+    lo_hi = []
+    for f in (math.exp(-b), math.exp(b)):
+        pol = RefreshPolicy(interval=got_f["interval"] * f,
+                            limited_by=got_f["limited_by"],
+                            tau_retention=got_f["tau_retention"],
+                            p1_read=got_f["p1_read"],
+                            reads_max=got_f["reads_max"],
+                            ber_budget=got_f["ber_budget"],
+                            reads_per_cell_s=got_f["reads_per_cell_s"])
+        r = evaluate_system("afmtj", refresh=pol)
+        lo_hi.append(dict(summarize=list(summarize(r)), share={
+            name: [r[name].t_refresh / r[name].t_imc,
+                   r[name].e_refresh / r[name].e_imc]
+            for name in ("bnn", "mat_add")}))
+    for i in range(2):
+        band = sorted(x["summarize"][i] for x in lo_hi)
+        w = ref_f["summarize_refresh"][i]
+        _mc_hold(band[0] <= w <= band[1], f"Fig. 4 average with scrub [{i}]",
+                 got_f["summarize_refresh"][i], w,
+                 f"the reference's in [{band[0]:.4g}, {band[1]:.4g}], the "
+                 f"port's at interval x exp(-/+{b:.2f})")
+    for name in ("bnn", "mat_add"):
+        for i in range(2):
+            band = sorted(x["share"][name][i] for x in lo_hi)
+            w = ref_f["share"][name][i]
+            _mc_hold(band[0] <= w <= band[1], f"scrub share {name} [{i}]",
+                     got_f["share"][name][i], w,
+                     f"the reference's in [{band[0]:.4g}, {band[1]:.4g}]")
+
+
+def phase7(torch, dev, census, write_census) -> dict:
+    """Phase 7: the slice's path (``phase7_path``) with a launch recorder
+    on the campaign engine's kernel entry, its holds (``phase7_holds``),
+    the rule's layout no slower than C1T1 on every new family, and both
+    twins held against the reference's output."""
+    from repro_torch.campaign import engine
+
+    cache = ROOT / "build" / "smoke-campaign-cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    rec = LaunchRecorder(engine.llg_rk4_kernel)
+    engine.llg_rk4_kernel = rec
+    try:
+        path = phase7_path(torch, rec)
+    finally:
+        engine.llg_rk4_kernel = rec.kernel
+    shutil.rmtree(cache, ignore_errors=True)
+    writes, shapes = phase7_holds(torch, dev, rec, census, write_census)
+    require_no_slower(shapes)
+    import torch_retention_study
+    import torch_variation_study
+
+    log("phase 7 twins against the reference's output:")
+    for line in (torch_variation_study.report(path["twins"]["variation"])
+                 + [""] + torch_retention_study.report(
+                     path["twins"]["retention"])):
+        log("  " + line)
+    hold_variation_twin(path["twins"]["variation"])
+    hold_retention_twin(path["twins"]["retention"])
+    log("  every twin number within its bound")
+    return dict(path, writes=writes, shapes=shapes)
+
+
 def main() -> int:
     import torch
 
@@ -1522,6 +2202,7 @@ def main() -> int:
     log_per_forward(per_fwd)
     require_b5_no_slower(analog_shapes)
     twins = phase6(torch)
+    corners = phase7(torch, dev, census, write_census)
 
     record = {"kernels": [{
         "name": "llg_rk4",
@@ -1557,6 +2238,13 @@ def main() -> int:
         "main_path_shapes": shapes,
         "rule_range_shapes": rule_range,
         "phase1_cases": phase1_cases,
+        # phase 7, the process-corner and read path: its own count (set to
+        # 0 before it), by layout and variation instance, and its new
+        # launch families (the first TRUNC_STEPS steps held against the
+        # plain version, the whole horizon against C1T1)
+        "launches_phase7": corners["launches"],
+        "launch_layouts_phase7": corners["launch_layouts"],
+        "phase7_shapes": corners["shapes"],
     }]}
     replaces = {"bitline_mac": "src/repro/kernels/bitline_mac.py:87",
                 "xnor_gemm": "src/repro/kernels/xnor_gemm.py:76",
@@ -1610,6 +2298,9 @@ def main() -> int:
         "library_ms": None,
         "shape": w["case"],
         "cases": write,
+        "launches_phase7": corners["write_launches"],
+        # the ss sample's writes: the conductance factor g_scale != 1
+        "phase7_cases": corners["writes"],
         "sass_census": {f"NSUB={k}": dict(
             per_lane_step=r["instructions_per_lane_step"],
             classes=r["classes"], mufu=r["mufu_per_step"],
@@ -1617,6 +2308,10 @@ def main() -> int:
             for k, r in write_census.items()},
     })
     record["twins"] = twins
+    # (the twins' own numbers hold infinite escape times: logged above)
+    record["phase7"] = {k: v for k, v in corners.items()
+                        if k not in ("shapes", "writes", "launch_layouts",
+                                     "twins")}
     record["model_path"] = {k: v for k, v in path.items()
                             if k not in ("launches", "reduce_launches",
                                          "launch_shapes")}

@@ -1,9 +1,9 @@
 """Thermal Monte-Carlo campaign engine, PyTorch port of ``repro.campaign``.
 
-  grid    — CampaignGrid axes + SoA packing (fused temperature plane,
-            power-of-two lane buckets)
+  grid    — CampaignGrid axes + SoA packing (fused corner x temperature
+            plane, power-of-two lane buckets, log horizon ladder)
   engine  — run_campaign / run_ensemble through the LLG kernel + surface
-            reductions (dense mode, one device)
+            reductions (dense mode, one device, process-corner axis)
   cache   — content-addressed npz result cache of the port
 """
 from repro_torch.campaign.cache import campaign_key  # noqa: F401
@@ -16,11 +16,15 @@ from repro_torch.campaign.engine import (  # noqa: F401
     run_ensemble,
 )
 from repro_torch.campaign.grid import (  # noqa: F401
+    HORIZON_RUNGS_PER_DECADE,
     CampaignGrid,
     bucket_cells,
+    log_horizon_bucket,
+    log_pulses,
     next_pow2,
     pack_campaign,
     pack_plane,
     pack_soa,
+    pack_variation,
     tilt_draws,
 )

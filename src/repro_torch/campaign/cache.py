@@ -21,8 +21,12 @@ import numpy as np
 
 from repro_torch.core.params import DeviceParams
 
-# bump when the kernel's noise stream or integration scheme changes
-KERNEL_VERSION = 1
+# bump when the kernel's noise stream or integration scheme changes.
+# v2: grids carry an optional process-variation spec (``CampaignGrid.
+# variation``, keyed through the grid), and variation results store a
+# (corner x T x V x S) tensor; the hit check in ``engine.run_campaign``
+# tests that full shape.
+KERNEL_VERSION = 2
 CELLS_LAYOUT = "fused-CT/bucket-pow2"
 PORT_TAG = "repro_torch"
 
@@ -82,7 +86,8 @@ def store_arrays(key: str, arrays: dict, header: dict,
 def campaign_key(p: DeviceParams, grid, backend: str) -> str:
     """Content hash of everything the crossing-time tensor depends on;
     ``backend`` names the path that computed it ("cuda-kernel" or
-    "cpu-plain")."""
+    "cpu-plain").  A nominal grid and a one-corner ``tt`` grid differ in
+    their variation spec, so they never share an entry."""
     return content_key({
         "port": PORT_TAG,
         "v": KERNEL_VERSION,
@@ -94,7 +99,8 @@ def campaign_key(p: DeviceParams, grid, backend: str) -> str:
 
 
 def load(key: str, cache_dir: Optional[str] = None) -> Optional[np.ndarray]:
-    """Cached (n_T, n_V, n_S) crossing-time tensor, or None on miss."""
+    """Cached crossing-time tensor ((n_T, n_V, n_S), or (n_C, n_T, n_V,
+    n_S) for a variation grid), or None on miss."""
     arrays = load_arrays(key, cache_dir)
     if arrays is None or "crossing_time" not in arrays:
         return None

@@ -1,10 +1,11 @@
 """AFMTJ/MTJ subarray model: rows x cols 1T1J array + periphery.
 
-Port of ``repro.circuit.subarray`` (deterministic read path).
-``make_subarray`` runs the device write solve once at the array's write
-voltage (or, with ``write_percentile``, the measured write-verify retry
-distribution of ``imc.write_path``) and the closed-form circuit models for
-read/logic timing, producing the ``SubarrayTimings`` the IMC hierarchy
+Port of ``repro.circuit.subarray``.  ``make_subarray`` runs the device
+write solve once at the array's write voltage (or, with
+``write_percentile``, the measured write-verify retry distribution of
+``imc.write_path``) and the closed-form circuit models for read/logic
+timing (or, with ``read_percentile``, the measured sense time of
+``imc.read_path``), producing the ``SubarrayTimings`` the IMC hierarchy
 consumes.
 
 Latency per op (row-granular, all columns in parallel):
@@ -48,6 +49,8 @@ class SubarrayTimings:
     write_attempts: float = 1.0        # mean pulses per cell write
     write_residual_ber: float = 0.0    # bit-error rate left after retries
     write_percentile: Optional[float] = None  # None = closed-form single pulse
+    read_yield: float = 1.0            # worst-corner Monte-Carlo sense yield
+    read_percentile: Optional[float] = None   # None = deterministic sense time
 
     @property
     def row_bits(self) -> int:
@@ -109,6 +112,7 @@ def make_subarray(
     sa: Optional[SenseAmpParams] = None,
     wer_target: Optional[float] = None,
     write_percentile: Optional[float] = None,
+    read_percentile: Optional[float] = None,
     device=None,
 ) -> Subarray:
     dev_t = resolve_device(device)
@@ -154,11 +158,24 @@ def make_subarray(
     g_worst = torch.tensor(1.0 / dev.r_antiparallel, dtype=torch.float32,
                            device=dev_t)
     t_settle = float(bitline_settle_time(g_worst, bl))
-    i_p = bl.v_read / dev.r_parallel
-    i_ap = bl.v_read / dev.r_antiparallel
-    t_sense = float(sense_delay(torch.tensor((i_p - i_ap) / 2.0,
-                                             dtype=torch.float32,
-                                             device=dev_t), sa))
+    r_yield = 1.0
+    if read_percentile is not None:
+        # measured read path (DESIGN.md §10): the sense time at the
+        # percentile of the (corner x D2D x offset) Monte-Carlo, worst
+        # corner, and the worst corner's sense yield
+        from repro_torch.imc.read_path import measured_read_timings
+
+        mr = measured_read_timings(kind, v_read=bl.v_read,
+                                   percentile=read_percentile, sa=sa, bl=bl,
+                                   device=device)
+        t_sense = mr.t_sense
+        r_yield = mr.read_yield
+    else:
+        i_p = bl.v_read / dev.r_parallel
+        i_ap = bl.v_read / dev.r_antiparallel
+        t_sense = float(sense_delay(torch.tensor((i_p - i_ap) / 2.0,
+                                                 dtype=torch.float32,
+                                                 device=dev_t), sa))
     t_read = t_settle + t_sense
     t_logic2 = t_settle + _worst_case_logic_delay(2, dev, bl, sa, dev_t)
     t_logic3 = t_settle + _worst_case_logic_delay(3, dev, bl, sa, dev_t)
@@ -173,6 +190,7 @@ def make_subarray(
         e_read_bit=e_read, e_write_bit=e_write, e_logic_bit=e_logic,
         e_logic3_bit=e_logic3, rows=rows, cols=cols,
         write_attempts=w_attempts, write_residual_ber=w_ber,
-        write_percentile=write_percentile)
+        write_percentile=write_percentile, read_yield=r_yield,
+        read_percentile=read_percentile)
     state = torch.zeros((rows, cols), dtype=torch.uint8, device=dev_t)
     return Subarray(dev=dev, bl=bl, sa=sa, timings=timings, state=state)

@@ -13,12 +13,16 @@ be driven from one parameter set.
 ``ProcessCorner`` / ``VariationSpec`` are the systematic process corners
 and the device-to-device draws of the reference (DESIGN.md §9); the draws
 come from the counter-RNG of ``kernels.noise``, whose uint32 stream is the
-reference's bit for bit.
+reference's bit for bit (its Box-Muller normals agree within a few float32
+ulp, so ``lane_factors`` agree to about 2e-6 relative).  ``lane_rows``
+turns them into the per-lane rows a campaign slice packs (``LaneRows``:
+host-side float64 numpy, as in the reference) and ``sample_device`` into
+one sampled device for the single-junction write (``DeviceSample``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -166,6 +170,42 @@ PROCESS_CORNERS = {c.name: c for c in (CORNER_TT, CORNER_SS, CORNER_FF)}
 
 
 @dataclasses.dataclass(frozen=True)
+class LaneRows:
+    """Per-lane device-parameter rows of one (corner, stream) slice
+    (host-side float64 numpy)."""
+
+    alpha: np.ndarray       # (n,) Gilbert damping
+    b_aniso: np.ndarray     # (n,) anisotropy field B_k [T]
+    g_scale: np.ndarray     # (n,) junction conductance factor (= 1/r_factor)
+    volume: np.ndarray      # (n,) free-layer volume [m^3]
+    sigma: np.ndarray       # (n,) Brown thermal-field std per step [T]
+    theta0: np.ndarray      # (n,) Boltzmann tilt scale sqrt(1/(2 Delta))
+
+    @property
+    def kernel_rows(self) -> np.ndarray:
+        """(3, n) float32 block of the LLG kernel's variation rows (alpha,
+        B_k, g_scale; ``kernels/llg_rk4.py``)."""
+        return np.stack([self.alpha, self.b_aniso,
+                         self.g_scale]).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceSample:
+    """One sampled device for the single-junction write: the corner- and
+    D2D-adjusted ``DeviceParams`` plus the junction conductance factor and
+    the volume factor (which scales Delta and sigma but not transport, as
+    the campaign's variation rows do)."""
+
+    params: DeviceParams
+    g_scale: float = 1.0
+    volume_factor: float = 1.0
+
+    @property
+    def thermal_stability(self) -> float:
+        return self.params.thermal_stability * self.volume_factor
+
+
+@dataclasses.dataclass(frozen=True)
 class VariationSpec:
     """Hashable process-variation scenario: systematic corners plus D2D
     draws salted by (seed, stream, parameter) but not by corner position,
@@ -184,6 +224,10 @@ class VariationSpec:
     @property
     def n_corners(self) -> int:
         return len(self.corners)
+
+    @property
+    def corner_names(self) -> Tuple[str, ...]:
+        return tuple(c.name for c in self.corners)
 
     @property
     def is_nominal(self) -> bool:
@@ -244,3 +288,36 @@ class VariationSpec:
             self._factor(corner.r_factor, corner.sigma_r, _PID_R, n, stream,
                          mean_preserving_reciprocal=True),
         ])
+
+    def lane_rows(self, p: DeviceParams, corner: ProcessCorner, n: int,
+                  dt: float, temperature: Optional[float] = None,
+                  stream: int = 0) -> LaneRows:
+        """Per-lane physical rows of one campaign slice: the varied device
+        constants plus the Brown sigma and Boltzmann tilt scale derived
+        from them (volume and damping drive sigma; volume and anisotropy
+        drive Delta)."""
+        t = float(p.temperature if temperature is None else temperature)
+        f = self.lane_factors(corner, n, stream)
+        alpha = p.alpha * f[0]
+        b_aniso = p.b_aniso * f[1]
+        volume = p.volume * f[2]
+        g_scale = 1.0 / f[3]
+        sigma = np.sqrt(2.0 * alpha * KB * t / (GAMMA * p.ms * volume * dt))
+        delta = 0.5 * b_aniso * p.ms * volume / (KB * t)
+        theta0 = np.sqrt(1.0 / (2.0 * np.maximum(delta, 1.0)))
+        return LaneRows(alpha=alpha, b_aniso=b_aniso, g_scale=g_scale,
+                        volume=volume, sigma=sigma, theta0=theta0)
+
+    def sample_device(self, p: DeviceParams, corner_index: int = 0,
+                      lane: int = 0, stream: int = 0) -> DeviceSample:
+        """Lane ``lane`` of the D2D draw at corner ``corner_index`` as one
+        sampled device (``core.device.simulate_write(variation=...)``); at
+        the nominal corner every factor is exactly 1.0."""
+        f = self.lane_factors(self.corners[corner_index], lane + 1,
+                              stream)[:, lane]
+        return DeviceSample(
+            params=dataclasses.replace(p, alpha=float(p.alpha * f[0]),
+                                       b_aniso=float(p.b_aniso * f[1])),
+            g_scale=float(1.0 / f[3]),
+            volume_factor=float(f[2]),
+        )

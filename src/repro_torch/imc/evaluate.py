@@ -1,16 +1,27 @@
 """System-level evaluation: IMC hierarchy vs CPU baseline (paper Fig. 4).
 
-Port of ``repro.imc.evaluate`` (nominal read path; refresh, faults and
-repair are not ported yet).  Latency: the controller retires row-granular
-ops; logic and write-back pipeline, so the stage time is
-max(logic, write) + 0.1 min(logic, write).  Energy: per-bit device energies
-+ per-row-op peripheral energy.
+Port of ``repro.imc.evaluate`` (faults and repair are not ported yet).
+Latency: the controller retires row-granular ops; logic and write-back
+pipeline, so the stage time is max(logic, write) + 0.1 min(logic, write).
+Energy: per-bit device energies + per-row-op peripheral energy.
+
+Refresh (DESIGN.md §10): a ``RefreshPolicy`` (``imc.read_path``, from
+measured retention and read-disturb budgets) makes the scrub controller a
+steady-state bandwidth tax: every ``interval`` each resident data row is
+read and rewritten.  ``evaluate_workload(..., refresh=...)`` charges that
+duty cycle into ``t_imc`` / ``e_imc`` and reports it as ``t_refresh`` /
+``e_refresh``.  With every read-path option off the numbers are the
+nominal Fig. 4 numbers, bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import statistics
-from typing import Dict, Optional
+from typing import TYPE_CHECKING, Dict, Optional
+
+if TYPE_CHECKING:  # pragma: no cover - read_path imports the circuit stack
+    from repro_torch.imc.read_path import RefreshPolicy
 
 from repro_torch.imc.cpu_model import CORTEX_A72, CPUModel
 from repro_torch.imc.hierarchy import IMCHierarchy, build_hierarchy
@@ -29,6 +40,11 @@ class SystemResult:
     t_write_op: float = 0.0
     write_attempts: float = 1.0
     write_residual_ber: float = 0.0
+    # refresh provenance (0.0 / inf without a RefreshPolicy): the scrub
+    # time and energy folded into t_imc / e_imc, and the policy's interval
+    t_refresh: float = 0.0
+    e_refresh: float = 0.0
+    refresh_interval: float = math.inf
 
     @property
     def speedup(self) -> float:
@@ -40,7 +56,9 @@ class SystemResult:
 
 
 def evaluate_workload(w: Workload, hier: IMCHierarchy,
-                      cpu: CPUModel = CORTEX_A72) -> SystemResult:
+                      cpu: CPUModel = CORTEX_A72,
+                      refresh: Optional["RefreshPolicy"] = None
+                      ) -> SystemResult:
     t_cpu, e_cpu = cpu.kernel_time_energy(
         w.n_elems, w.cpu_instrs_per_elem, w.cpu_simd_fraction,
         w.cpu_bytes_per_elem, w.footprint_bytes)
@@ -65,22 +83,51 @@ def evaluate_workload(w: Workload, hier: IMCHierarchy,
         + w.reads * tm.e_read_bit)
     n_row_ops = n * (w.logic2 + w.logic3 + w.writes + w.reads)
     e_imc = e_cells + n_row_ops * level.spec.e_periph_row_op
+
+    # refresh: every interval the scrub reads and rewrites each resident
+    # data row; it steals a duty fraction of row-op bandwidth (stretching
+    # the workload by duty / (1 - duty)) and one read + write pass of the
+    # footprint per interval
+    t_refresh = e_refresh = 0.0
+    interval = math.inf
+    if refresh is not None and math.isfinite(refresh.interval):
+        interval = refresh.interval
+        data_rows = max(1.0, w.footprint_bytes * 8.0 / level.row_bits)
+        duty = min(data_rows * (tm.t_read + tm.t_write) / interval, 0.95)
+        t_refresh = t_imc * duty / (1.0 - duty)
+        t_imc = t_imc + t_refresh
+        bits = data_rows * level.row_bits
+        e_pass = (bits * (tm.e_read_bit + tm.e_write_bit)
+                  + 2.0 * data_rows * level.spec.e_periph_row_op)
+        e_refresh = (t_imc / interval) * e_pass
+        e_imc = e_imc + e_refresh
     return SystemResult(w.name, t_cpu, e_cpu, t_imc, e_imc,
                         t_write_op=tm.t_write,
                         write_attempts=tm.write_attempts,
-                        write_residual_ber=tm.write_residual_ber)
+                        write_residual_ber=tm.write_residual_ber,
+                        t_refresh=t_refresh, e_refresh=e_refresh,
+                        refresh_interval=interval)
 
 
 def evaluate_system(kind: str = "afmtj", v_write: float = 1.0,
                     wer_target: Optional[float] = None,
                     write_percentile: Optional[float] = None,
+                    read_percentile: Optional[float] = None,
+                    offset_sigma: float = 0.0,
+                    refresh: Optional["RefreshPolicy"] = None,
                     device=None) -> Dict[str, SystemResult]:
     """Fig. 4 over the paper's six workloads.  ``wer_target`` sizes write
     pulses from the thermal-tail campaign; ``write_percentile`` (e.g. 99.0)
-    uses the measured write-verify row time at that percentile."""
+    uses the measured write-verify row time at that percentile;
+    ``read_percentile`` / ``offset_sigma`` do the same for the sense time
+    (``imc.read_path``), and ``refresh`` charges a measured scrub policy.
+    All off keeps the nominal Fig. 4 numbers bit for bit."""
     hier = build_hierarchy(kind, v_write=v_write, wer_target=wer_target,
-                           write_percentile=write_percentile, device=device)
-    return {name: evaluate_workload(w, hier) for name, w in WORKLOADS.items()}
+                           write_percentile=write_percentile,
+                           read_percentile=read_percentile,
+                           offset_sigma=offset_sigma, device=device)
+    return {name: evaluate_workload(w, hier, refresh=refresh)
+            for name, w in WORKLOADS.items()}
 
 
 def summarize(results: Dict[str, SystemResult]):

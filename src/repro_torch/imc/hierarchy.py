@@ -62,19 +62,25 @@ def build_hierarchy(
     v_write: float = 1.0,
     wer_target: Optional[float] = None,
     write_percentile: Optional[float] = None,
+    read_percentile: Optional[float] = None,
+    offset_sigma: float = 0.0,
     device=None,
 ) -> IMCHierarchy:
     """``wer_target`` sizes write pulses from the thermal-tail campaign;
     ``write_percentile`` (e.g. 99.0) measures per-level write timings from
-    the write-verify retry scheduler at that row-time percentile."""
+    the write-verify retry scheduler at that row-time percentile;
+    ``read_percentile`` measures per-level sense times from the worst
+    corner's (D2D x sense-amp offset) Monte-Carlo at that percentile, with
+    ``offset_sigma`` [V] the sense amp's input-referred offset spread."""
     levels = {}
-    sa = SenseAmpParams()
+    sa = SenseAmpParams(offset_sigma=offset_sigma)
     for spec in LEVELS:
         bl = BitlineParams(c_per_cell=0.03e-15 * spec.c_per_cell_scale,
                            rows=spec.rows)
         sub = make_subarray(kind, rows=spec.rows, cols=spec.cols,
                             v_write=v_write, bl=bl, sa=sa,
                             wer_target=wer_target,
-                            write_percentile=write_percentile, device=device)
+                            write_percentile=write_percentile,
+                            read_percentile=read_percentile, device=device)
         levels[spec.name] = IMCLevel(spec=spec, timings=sub.timings)
     return IMCHierarchy(kind=kind, levels=levels)

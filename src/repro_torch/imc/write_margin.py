@@ -3,14 +3,16 @@
 Port of ``repro.imc.write_margin``: turn a write-error-rate target into a
 pulse width by running one thermal Monte-Carlo campaign over a pulse ladder
 (pulse width is post-processing of the first-crossing row) and taking the
-smallest rung that meets the target at every temperature asked for.
+smallest rung that meets the target at every temperature, and with
+``variation`` at every process corner, asked for (DESIGN.md §9).
 """
 from __future__ import annotations
 
 import functools
 from typing import Optional, Tuple
 
-from repro_torch.core.params import AFMTJ_PARAMS, MTJ_PARAMS, DeviceParams
+from repro_torch.core.params import (AFMTJ_PARAMS, MTJ_PARAMS, DeviceParams,
+                                     VariationSpec)
 
 # Pulse ladders bracketing each device's thermal switching tail; rung
 # spacing is the pulse-width quantization of the margin.
@@ -38,11 +40,13 @@ def wer_margined_pulse(
     use_cache: bool = True,
     ladder: Optional[Tuple[float, ...]] = None,
     temperatures: Optional[Tuple[float, ...]] = None,
+    variation: Optional[VariationSpec] = None,
     device=None,
 ) -> float:
     """Smallest ladder pulse [s] with WER <= ``wer_target`` at ``v_write``,
-    over every temperature of ``temperatures`` (default: the device's
-    nominal one) — one fused campaign.  Raises ValueError when no rung
+    at the worst (corner, temperature) cell: every temperature of
+    ``temperatures`` (default: the device's nominal one) and every corner
+    of ``variation`` — one fused campaign.  Raises ValueError when no rung
     meets the target."""
     from repro_torch.campaign.engine import run_campaign
     from repro_torch.campaign.grid import CampaignGrid
@@ -53,7 +57,9 @@ def wer_margined_pulse(
              else (p.temperature,))
     grid = CampaignGrid(voltages=(float(v_write),), pulse_widths=pulses,
                         temperatures=temps, n_samples=n_samples,
-                        dt=DEVICE_DT[kind], seed=seed)
+                        dt=DEVICE_DT[kind], seed=seed, variation=variation)
     res = run_campaign(p, grid, use_cache=use_cache, device=device)
-    return max(res.pulse_for_wer(wer_target, t_index=ti, v_index=0)
+    # corner_index=None: the worst corner at every pulse
+    return max(res.pulse_for_wer(wer_target, t_index=ti, v_index=0,
+                                 corner_index=None)
                for ti in range(len(temps)))

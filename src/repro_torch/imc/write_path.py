@@ -1,12 +1,19 @@
 """Stochastic write path: write-verify programming through LLG transients.
 
-Port of ``repro.imc.write_path`` for the nominal device (no process
-variation).  A write-verify scheduler programs cells through thermal LLG
-transients: one fixed-width pulse per cell (a single-point campaign through
-``campaign.run_campaign``), success read off the first-crossing row, and
-only failed cells re-pulsed with fresh thermal samples, up to
-``max_attempts`` rounds.  Out come measured per-cell latency / energy,
-retry counts and the residual bit-error rate.
+Port of ``repro.imc.write_path``.  A write-verify scheduler programs cells
+through thermal LLG transients: one fixed-width pulse per cell (a
+single-point campaign through ``campaign.run_campaign``), success read off
+the first-crossing row, and only failed cells re-pulsed with fresh thermal
+samples, up to ``max_attempts`` rounds.  Out come measured per-cell latency
+/ energy, retry counts and the residual bit-error rate.
+
+With ``WritePolicy.variation`` (one process corner, DESIGN.md §9) every
+cell is a sampled device: its D2D rows ride the LLG kernel's variation
+plane through ``campaign.run_ensemble`` and persist across its retries,
+while each round draws a fresh tilt (``grid.tilt_draws``, as a nominal
+round of the same seed draws it) scaled by the cell's own theta0 and a
+fresh thermal stream; energy uses the cell's own conductances.
+``write_verify_corners`` runs one schedule per corner of a spec.
 
 Conventions (as the reference): attempts are independent thermal trials
 (fresh tilt and noise stream per round); per-attempt energy charges G_P up
@@ -18,13 +25,20 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.campaign.engine import run_campaign
+from repro_torch._device import resolve_device
+from repro_torch.campaign import grid as _grid
+from repro_torch.campaign.engine import (EARLY_EXIT_CHUNK, run_campaign,
+                                         run_ensemble)
 from repro_torch.campaign.grid import CampaignGrid
+from repro_torch.core import llg
+from repro_torch.core.params import VariationSpec
 from repro_torch.imc.write_margin import DEVICE_DT, params_for
 
 
@@ -53,6 +67,9 @@ class WritePolicy:
     dt: Optional[float] = None        # None = per-device campaign step
     seed: int = 0
     use_cache: bool = True
+    # one process corner (DESIGN.md §9): per-device D2D rows persist across
+    # a cell's retries; sweep a multi-corner spec with write_verify_corners
+    variation: Optional[VariationSpec] = None
 
     def resolved_pulse(self, kind: str, device=None) -> float:
         if self.pulse is not None:
@@ -121,7 +138,10 @@ def write_verify(kind: str, n_cells: int,
                  device=None) -> ArrayWriteResult:
     """Write ``n_cells`` cells (P -> AP) through the retry scheduler.  Each
     round is one single-point campaign over the still-unwritten cells, with
-    the round folded into the campaign seed."""
+    the round folded into the campaign seed (``policy.variation``: one
+    ``run_ensemble`` launch on the variation plane per round)."""
+    if policy.variation is not None:
+        return _write_verify_variation(kind, n_cells, policy, device)
     p = params_for(kind)
     v = float(policy.v_write)
     pulse = policy.resolved_pulse(kind, device)
@@ -168,6 +188,101 @@ def write_verify(kind: str, n_cells: int,
                             elapsed_s=elapsed, rounds=rounds)
 
 
+def _write_verify_variation(kind: str, n_cells: int, policy: WritePolicy,
+                            device=None) -> ArrayWriteResult:
+    """Write-verify of one corner's sampled devices: one D2D draw fixes
+    every cell's rows (alpha, B_k, g_scale on the kernel's variation plane;
+    Brown sigma and tilt scale from its varied volume), and each round
+    integrates the survivors through ``run_ensemble`` with their own
+    rows."""
+    p = params_for(kind)
+    spec = policy.variation
+    if spec is None or spec.n_corners != 1:
+        raise ValueError("write_verify programs one corner's array; sweep "
+                         "corners with write_verify_corners")
+    dev = resolve_device(device)
+    v = float(policy.v_write)
+    pulse = policy.resolved_pulse(kind, device)
+    dt = policy.resolved_dt(kind)
+    temp = float(policy.temperature if policy.temperature is not None
+                 else p.temperature)
+    # one step past the pulse, so the never-crossed sentinel exceeds it
+    n_steps = int(math.ceil(pulse / dt)) + 1
+
+    rows = spec.lane_rows(p, spec.corners[0], n_cells, dt, temperature=temp)
+    kernel_rows = rows.kernel_rows                      # (3, n_cells) f32
+    g_p = (1.0 / p.r_parallel) * rows.g_scale           # per cell [S]
+    g_ap = (1.0 / p.r_antiparallel) * rows.g_scale
+    e_rc = v * v * g_p * policy.t_rc
+
+    attempts = np.zeros(n_cells, dtype=np.int64)
+    success = np.zeros(n_cells, dtype=bool)
+    crossing = np.full(n_cells, np.nan)
+    energy = np.zeros(n_cells)
+    remaining = np.arange(n_cells)
+
+    t0 = time.perf_counter()
+    rounds = 0
+    for rnd in range(policy.max_attempts):
+        if remaining.size == 0:
+            break
+        rounds += 1
+        m = int(remaining.size)
+        seed_r = policy.seed * 1009 + rnd
+        # a fresh tilt per round: the draws of a nominal round of this
+        # seed, scaled by each survivor's own theta0
+        round_grid = CampaignGrid(voltages=(v,), pulse_widths=(pulse,),
+                                  temperatures=(temp,), n_samples=m, dt=dt,
+                                  seed=seed_r)
+        zs, ph = _grid.tilt_draws(round_grid, 0, m, dev)
+        zs = torch.as_tensor(zs, dtype=torch.float32, device=dev)
+        ph = torch.as_tensor(ph, dtype=torch.float32, device=dev)
+        th0 = torch.as_tensor(rows.theta0[remaining], dtype=torch.float32,
+                              device=dev)
+        m0 = llg.initial_state(p, zs * th0 + 0.01, ph)
+        res = run_ensemble(
+            p, m0, torch.full((m,), v, dtype=torch.float32, device=dev), dt,
+            n_steps, seed=seed_r, chunk=EARLY_EXIT_CHUNK,
+            lane_params=kernel_rows[:, remaining],
+            sigma_lanes=rows.sigma[remaining], device=dev)
+        ct = res.crossing_time                          # (m,) [s]
+        ok = ct <= pulse
+
+        attempts[remaining] += 1
+        gp_r, gap_r = g_p[remaining], g_ap[remaining]
+        e_att = np.where(ok,
+                         v * v * (gp_r * ct + gap_r * (pulse - ct)),
+                         v * v * gp_r * pulse)
+        energy[remaining] += e_att + e_rc[remaining] + policy.e_verify
+        done = remaining[ok]
+        success[done] = True
+        crossing[done] = ct[ok]
+        remaining = remaining[~ok]
+    elapsed = time.perf_counter() - t0
+    return ArrayWriteResult(kind=kind, policy=policy, pulse=pulse, dt=dt,
+                            attempts=attempts, success=success,
+                            crossing_time=crossing, energy=energy,
+                            elapsed_s=elapsed, rounds=rounds)
+
+
+def write_verify_corners(kind: str, n_cells: int,
+                         policy: WritePolicy = WritePolicy(),
+                         spec: Optional[VariationSpec] = None,
+                         device=None) -> Dict[str, ArrayWriteResult]:
+    """One retry schedule per process corner of ``spec`` (default:
+    ``policy.variation``), ``{corner name: ArrayWriteResult}``.  Corners
+    share D2D draws and per-round tilts and thermal streams, so their
+    differences are paired per cell."""
+    spec = spec if spec is not None else policy.variation
+    if spec is None:
+        raise ValueError("write_verify_corners needs a VariationSpec")
+    return {corner.name: write_verify(
+                kind, n_cells,
+                dataclasses.replace(policy, variation=spec.at_corner(ci)),
+                device)
+            for ci, corner in enumerate(spec.corners)}
+
+
 @dataclasses.dataclass(frozen=True)
 class MeasuredWrite:
     """Distribution summary the subarray timing model consumes."""
@@ -194,14 +309,16 @@ def measured_write_timings(
     n_rows: int = 16,
     seed: int = 0,
     use_cache: bool = True,
+    variation: Optional[VariationSpec] = None,
     device=None,
 ) -> MeasuredWrite:
     """Row-granular write timing from the measured retry distribution:
     ``n_rows`` rows of ``cols`` cells through ``write_verify``, reduced to
-    the ``percentile`` row write time and the mean per-bit energy."""
+    the ``percentile`` row write time and the mean per-bit energy;
+    ``variation`` (one corner) measures a process corner's devices."""
     policy = WritePolicy(v_write=float(v_write), pulse=pulse, t_rc=float(t_rc),
                          max_attempts=int(max_attempts), seed=int(seed),
-                         use_cache=use_cache)
+                         use_cache=use_cache, variation=variation)
     res = write_verify(kind, int(cols) * int(n_rows), policy, device)
     row_att = res.row_attempts(int(cols))
     return MeasuredWrite(

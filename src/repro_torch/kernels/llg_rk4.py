@@ -11,7 +11,8 @@ reference's ``llg_rk4_pallas`` (minus ``interpret``):
 
 ``llg_rk4_kernel.launches`` counts kernel launches (plain calls do not
 count) and ``llg_rk4_kernel.launch_layouts`` counts them by ``(cells,
-n_sublattices, C, T, P)``; ``reset_counts()`` zeroes both.
+n_sublattices, C, T, P, V)``, V = 1 for the variation instance (per-lane
+alpha, B_k and g_scale rows); ``reset_counts()`` zeroes both.
 
 Layout.  A launch maps each 512-lane exit group onto C blocks (a
 thread-block cluster when the chunked exit votes across them) with T
@@ -237,7 +238,8 @@ def llg_rk4_kernel(
                            f"{layout} failed: {err}, "
                            f"{lib.llg_rk4_error_string(err).decode()}")
     llg_rk4_kernel.launches += 1
-    llg_rk4_kernel.launch_layouts[(cells, p.n_sublattices, *layout)] += 1
+    llg_rk4_kernel.launch_layouts[(cells, p.n_sublattices, *layout,
+                                   int(variation))] += 1
     return out
 
 

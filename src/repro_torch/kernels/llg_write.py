@@ -2,8 +2,11 @@
 
 The kernel runs the write loop of ``core.device.simulate_write`` and
 ``write_sweep`` (the reference's ``lax.scan`` in ``repro.core.device``):
-one lane per drive voltage, a fixed horizon, the self-consistent a_J.
-``llg_write_kernel`` has the contract of ``ref.ref_llg_write``:
+one lane per drive voltage, a fixed horizon, the self-consistent a_J,
+and optionally a per-lane junction conductance factor ``g_scale`` (a
+sampled process corner, ``core.params.DeviceSample``) on the drive and on
+the energy sum.  ``llg_write_kernel`` has the contract of
+``ref.ref_llg_write``:
 
 * CPU tensors run the plain PyTorch version ``ref.ref_llg_write``;
 * CUDA tensors launch the kernel on the current stream, without
@@ -32,7 +35,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("llg_write")
     if not getattr(lib, "_repro_typed", False):
         lib.llg_write_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
             + [ctypes.c_float, ctypes.POINTER(ctypes.c_float),
                ctypes.c_void_p])
         lib.llg_write_launch.restype = ctypes.c_int
@@ -50,11 +53,12 @@ def llg_write_kernel(
     dt: float,
     n_steps: int,
     down: bool = True,
+    g_scale: torch.Tensor | None = None,   # optional (lanes,) f32 factors
 ) -> tuple:
     """``(m, t_switch, switched, energy)`` after ``n_steps`` write steps
     (see ``ref.ref_llg_write``)."""
     if m0.device.type == "cpu":
-        return ref_llg_write(m0, voltages, p, dt, n_steps, down)
+        return ref_llg_write(m0, voltages, p, dt, n_steps, down, g_scale)
     if m0.device.type != "cuda":
         raise ValueError(f"llg_write_kernel: unsupported device {m0.device}")
     nsub = p.n_sublattices
@@ -68,9 +72,15 @@ def llg_write_kernel(
     if (voltages.device != m0.device or voltages.numel() != lanes
             or voltages.dtype != torch.float32):
         raise ValueError("voltages must be (lanes,) float32 on m0's device")
+    if g_scale is not None and (g_scale.device != m0.device
+                                or g_scale.numel() != lanes
+                                or g_scale.dtype != torch.float32):
+        raise ValueError("g_scale must be (lanes,) float32 on m0's device")
     dev = m0.device
     m0 = m0.contiguous()
     volts = voltages.reshape(lanes).contiguous()
+    if g_scale is not None:
+        g_scale = g_scale.reshape(lanes).contiguous()
     out = torch.empty((lanes, 3 * nsub + 3), dtype=torch.float32, device=dev)
     lib = _library()
     vals = kernel_consts(p, dt, SWITCH_THRESHOLD)
@@ -79,6 +89,8 @@ def llg_write_kernel(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.llg_write_launch(m0.data_ptr(), volts.data_ptr(),
+                                   None if g_scale is None
+                                   else g_scale.data_ptr(),
                                    out.data_ptr(), lanes, int(n_steps), nsub,
                                    1.0 if down else -1.0, consts, stream)
     if err != 0:

@@ -17,8 +17,9 @@ and with a single group the two are identical.
 ``ref_llg_write`` is the single-junction write loop of
 ``core.device.simulate_write`` (the reference's ``lax.scan`` in
 ``repro.core.device``) over a batch of lanes, one per drive voltage, at a
-fixed horizon with the self-consistent a_J; it is what
-``llg_write.llg_write_kernel`` runs for CPU tensors.
+fixed horizon with the self-consistent a_J (times an optional per-lane
+conductance factor); it is what ``llg_write.llg_write_kernel`` runs for
+CPU tensors.
 
 ``ref_bitline_mac``, ``ref_xnor_gemm`` and ``ref_fake_analog`` are the plain
 versions of the analog MAC kernels (``csrc/analog_mac.cu``,
@@ -149,13 +150,16 @@ def ref_llg_write(
     dt: float,
     n_steps: int,
     down: bool = True,
+    g_scale: torch.Tensor | None = None,   # optional (lanes,) f32 factors
 ) -> tuple:
     """Advance ``lanes`` junctions ``n_steps`` RK4 steps, the STT amplitude
     re-evaluated from the conductance at every step (a_J = pref ((V G)/A),
-    the order of ``core.device.a_j_from_voltage``).  Per step: t = t + dt
-    in float32; the first step whose order parameter crosses -0.9 (``down``)
-    or +0.9 stamps ``t + dt``; the energy adds V^2 G dt until the lane has
-    switched.  Returns ``(m, t_switch, switched, energy)``: the final
+    the order of ``core.device.a_j_from_voltage``, times ``g_scale``).  Per
+    step: t = t + dt in float32; the first step whose order parameter
+    crosses -0.9 (``down``) or +0.9 stamps ``t + dt``; the energy adds
+    V^2 (G g_scale) dt until the lane has switched.  Without ``g_scale``
+    the factor is 1 (a product with 1.0 is exact, so the result is the
+    same).  Returns ``(m, t_switch, switched, energy)``: the final
     ``(lanes, n_sub, 3)`` state, ``(lanes,)`` float32 (inf where no crossing),
     bool and float32."""
     from repro_torch.core.device import a_j_from_voltage
@@ -172,15 +176,17 @@ def ref_llg_write(
     t_sw = torch.full((lanes,), float("inf"), dtype=f32, device=dev)
     sw = torch.zeros((lanes,), dtype=torch.bool, device=dev)
     en = torch.zeros((lanes,), dtype=f32, device=dev)
+    gs = (torch.ones((lanes,), dtype=f32, device=dev) if g_scale is None
+          else g_scale.to(f32).reshape(lanes))
     for _ in range(int(n_steps)):
-        a_j = a_j_from_voltage(v, m, p)
+        a_j = a_j_from_voltage(v, m, p) * gs
         m = rk4_step(lambda mm, tt: llg.llg_rhs(mm, p, a_j), m, 0.0, dt)
         opz = llg.order_parameter_z(m)
         crossed = opz < -0.9 if down else opz > 0.9
         t_next = t + dt_t
         t_sw = torch.where(crossed & ~sw, t_next, t_sw)
         sw = sw | crossed
-        g = tmr.conductance(m, p)
+        g = tmr.conductance(m, p) * gs
         en = en + torch.where(sw, zero, v2 * g * dt_t)
         t = t_next
     return m, t_sw, sw, en

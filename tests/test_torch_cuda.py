@@ -138,7 +138,8 @@ def test_every_layout_is_bit_identical(dev, kind, layout, case):
     out = llg_rk4_kernel(st, p, dt, n, **kw, layout=layout)
     torch.cuda.synchronize()
     assert llg_rk4_kernel.launches == before + 1
-    assert llg_rk4_kernel.launch_layouts[(1024, p.n_sublattices, *layout)]
+    assert llg_rk4_kernel.launch_layouts[(1024, p.n_sublattices, *layout,
+                                          int(case == "variation"))]
     assert torch.equal(out, _PLAIN[(kind, case)])
 
 
@@ -511,3 +512,97 @@ def test_write_kernel_rejects_bad_inputs(dev):
     with pytest.raises(ValueError):
         llg_write_kernel(torch.zeros(2, 2, 3, device=dev), v[:1],
                          AFMTJ_PARAMS, 1e-13, 10)
+
+
+# --- the process-corner paths: g_scale in the write kernel, B1's variation
+# instance at a corner campaign's shape -------------------------------------
+@pytest.mark.parametrize("kind,volts,n,dt", [
+    ("afmtj", (0.8, 1.0, 1.2), 3000, 0.05e-12),
+    ("mtj", (1.0, 2.0), 9000, 0.1e-12)])
+def test_write_kernel_conductance_factor_bit_identical(dev, kind, volts, n,
+                                                       dt):
+    """Per-lane g_scale != 1 (an ss and an ff lane and a D2D one) on the
+    card equals ref_llg_write with the same factors; all-ones factors
+    equal the kernel without them."""
+    from repro_torch.core import llg
+    from repro_torch.kernels.llg_write import llg_write_kernel
+
+    p = AFMTJ_PARAMS if kind == "afmtj" else MTJ_PARAMS
+    m0 = llg.initial_state(p, theta0=0.2, phi0=0.3, device=dev)
+    m0 = m0.expand(len(volts), *m0.shape).contiguous()
+    v = torch.tensor(volts, dtype=torch.float32, device=dev)
+    gs = torch.tensor([1 / 1.15, 1 / 0.87, 0.93][:len(volts)],
+                      dtype=torch.float32, device=dev)
+    got = llg_write_kernel(m0, v, p, dt, n, True, gs)
+    torch.cuda.synchronize()
+    want = ref.ref_llg_write(m0, v, p, dt, n, True, gs)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    ones = llg_write_kernel(m0, v, p, dt, n, True, torch.ones_like(gs))
+    none = llg_write_kernel(m0, v, p, dt, n, True)
+    for a, b in zip(ones, none):
+        assert torch.equal(a, b)
+
+
+def test_simulate_write_corner_sample_on_the_card(dev):
+    from repro_torch.core.device import simulate_write
+    from repro_torch.core.params import CORNER_SS, VariationSpec
+    from repro_torch.kernels import llg_write
+
+    s = VariationSpec(corners=(CORNER_SS,)).sample_device(AFMTJ_PARAMS)
+    llg_write.reset_counts()
+    got = simulate_write(AFMTJ_PARAMS, 1.0, n_steps=3000, dt=0.05e-12,
+                         variation=s, device=dev)
+    assert llg_write.llg_write_kernel.launches == 1
+    want = simulate_write(AFMTJ_PARAMS, 1.0, n_steps=3000, dt=0.05e-12,
+                          variation=s, device="cpu")
+    assert torch.equal(got.t_switch.cpu(), want.t_switch)
+    assert torch.equal(got.energy.cpu(), want.energy)
+
+
+@pytest.mark.parametrize("kind", ["afmtj", "mtj"])
+def test_variation_campaign_every_layout_equals_c1t1(dev, kind):
+    """B1's variation instance at a corner campaign's shape (3 corners x 2
+    temperatures x 2 voltages x 64 samples: 3,072 lanes in a 4,096-lane
+    bucket), packed as run_campaign packs it: every layout of the rule's
+    kind bit-identical to C1T1, and the rule's launch counted as V = 1."""
+    import dataclasses
+
+    from repro_torch.campaign import CampaignGrid, run_campaign
+    from repro_torch.campaign.engine import EARLY_EXIT_CHUNK
+    from repro_torch.campaign.grid import bucket_cells, pack_variation
+    from repro_torch.core.params import (CORNER_FF, CORNER_SS, CORNER_TT,
+                                         VariationSpec)
+    from repro_torch.kernels.llg_rk4 import layout_rule, sm_count
+
+    p = AFMTJ_PARAMS if kind == "afmtj" else MTJ_PARAMS
+    dt, pulse = (0.1e-12, 150e-12) if kind == "afmtj" else (0.2e-12, 800e-12)
+    spec = VariationSpec(corners=(
+        CORNER_TT, dataclasses.replace(CORNER_SS, sigma_r=0.05), CORNER_FF))
+    grid = CampaignGrid(voltages=(1.0, 1.4) if kind == "afmtj" else (2.0, 3.0),
+                        pulse_widths=(pulse,), temperatures=(300.0, 350.0),
+                        n_samples=64, dt=dt, seed=2, variation=spec)
+    state, seeds, sigma, budget, lp, _ = pack_variation(grid, p, dev)
+    pad = bucket_cells(state.shape[1]) - state.shape[1]
+    state = torch.nn.functional.pad(state, (0, pad))
+    seeds = torch.nn.functional.pad(seeds, (0, pad))
+    sigma = torch.nn.functional.pad(sigma, (0, pad))
+    budget = torch.nn.functional.pad(budget, (0, pad))
+    fill = torch.tensor([[p.alpha], [p.b_aniso], [1.0]], device=dev)
+    lp = torch.cat([lp, fill.expand(3, pad)], dim=1)
+    n = 1 << (grid.n_steps - 1).bit_length()
+    kw = dict(thermal_sigma=sigma, seeds=seeds, step_budget=budget,
+              chunk=EARLY_EXIT_CHUNK, lane_params=lp)
+    cells = state.shape[1]
+    c1t1 = llg_rk4_kernel(state, p, dt, n, **kw, layout=(1, 1, 0))
+    rule = layout_rule(cells, p.n_sublattices, sm_count(dev.index or 0), True)
+    for lay in {rule, (rule[0], 1, rule[2]), (8, 1, 1), (16, 1, 0)}:
+        out = llg_rk4_kernel(state, p, dt, n, **kw, layout=lay)
+        torch.cuda.synchronize()
+        assert torch.equal(out, c1t1), lay
+    llg_rk4_kernel.launch_layouts.clear()
+    res = run_campaign(p, grid, use_cache=False, device=dev)
+    assert res.crossing_time.shape == (3, 2, 2, 64)
+    assert list(llg_rk4_kernel.launch_layouts) == [
+        (cells, p.n_sublattices, *rule, 1)]
+    assert (out[7, :grid.cells] < n).any()

@@ -32,7 +32,8 @@ def _sources():
 
 
 TWINS = ("torch_model_accuracy_study", "torch_quickstart",
-         "torch_imc_case_study")
+         "torch_imc_case_study", "torch_variation_study",
+         "torch_retention_study")
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
@@ -56,7 +57,8 @@ def test_no_jax_or_reference_imports(path):
 def test_every_module_imports_with_jax_blocked():
     mods = _port_modules()
     assert len(mods) >= 55, mods
-    for m in ("repro_torch.configs.registry", "repro_torch.models.model",
+    for m in ("repro_torch.imc.read_path", "repro_torch.circuit.senseamp",
+              "repro_torch.configs.registry", "repro_torch.models.model",
               "repro_torch.models.attention", "repro_torch.imc.faults",
               "repro_torch.imc.analog_pipeline", "repro_torch.imc.mapping",
               "repro_torch.imc.model_analog", "repro_torch.kernels.bitline_mac",
@@ -92,9 +94,12 @@ def _entry_points():
     from repro_torch.imc.evaluate import evaluate_system
     from repro_torch.imc.hierarchy import build_hierarchy
     from repro_torch.imc.write_margin import wer_margined_pulse
+    from repro_torch.imc import read_path
     from repro_torch.imc.write_path import (WritePolicy,
                                             measured_write_timings,
-                                            write_verify)
+                                            write_verify,
+                                            write_verify_corners)
+    from repro_torch.core.params import CORNER_SS, VariationSpec
 
     grid = CampaignGrid(voltages=(1.0,), pulse_widths=(100e-12,), n_samples=4)
     m0 = torch.zeros(4, 2, 3)
@@ -120,6 +125,29 @@ def _entry_points():
             afmtj_steps=10, mtj_steps=10),
         "torch_imc_case_study.run": lambda: _twin(
             "torch_imc_case_study").run(),
+        "simulate_write_corner": lambda: simulate_write(
+            AFMTJ_PARAMS, 1.0, n_steps=10,
+            variation=VariationSpec(corners=(CORNER_SS,)).sample_device(
+                AFMTJ_PARAMS)),
+        "write_verify_corners": lambda: write_verify_corners(
+            "afmtj", 4, WritePolicy(pulse=1e-10, use_cache=False),
+            VariationSpec(corners=(CORNER_SS,))),
+        "read_disturb_campaign": lambda: read_path.read_disturb_campaign(
+            n_samples=4, use_cache=False),
+        "retention_campaign": lambda: read_path.retention_campaign(
+            n_samples=4, use_cache=False),
+        "fit_disturb_model": lambda: read_path.fit_disturb_model(
+            n_samples=4, use_cache=False),
+        "sense_margin_yield": lambda: read_path.sense_margin_yield(
+            n_samples=4),
+        "measured_read_timings": lambda: read_path.measured_read_timings(
+            "afmtj", n_samples=4),
+        "derive_refresh_policy": lambda: read_path.derive_refresh_policy(
+            n_samples=4, use_cache=False),
+        "torch_variation_study.run": lambda: _twin(
+            "torch_variation_study").run(quick=True, use_cache=False),
+        "torch_retention_study.run": lambda: _twin(
+            "torch_retention_study").run(quick=True, use_cache=False),
         "make_subarray": lambda: make_subarray("afmtj"),
         "build_hierarchy": lambda: build_hierarchy("afmtj"),
         "evaluate_system": lambda: evaluate_system("afmtj"),
@@ -173,7 +201,11 @@ def _analog_entry_points():
     "run_ensemble", "run_campaign", "wer_margined_pulse", "write_verify",
     "write_verify_nominal", "measured_write_timings", "simulate_write",
     "write_sweep", "map_all", "torch_quickstart.run",
-    "torch_imc_case_study.run",
+    "torch_imc_case_study.run", "simulate_write_corner",
+    "write_verify_corners", "read_disturb_campaign", "retention_campaign",
+    "fit_disturb_model", "sense_margin_yield", "measured_read_timings",
+    "derive_refresh_policy", "torch_variation_study.run",
+    "torch_retention_study.run",
     "make_subarray", "build_hierarchy", "evaluate_system",
     "program_weights", "binary_matmul", "mvm_accuracy", "fake_analog_matmul",
     "program_weights_cached", "analog_model_logits", "model_accuracy",
