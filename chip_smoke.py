@@ -152,10 +152,41 @@ Phases (any failure raises and the script exits non-zero):
    1 / sqrt(escapes) in ln for escape times, propagated to the fits), the
    margined pulses on the same rung or one off.
 
+8. The write-path and fault-cost remainder and serving at full size,
+   through their entry points, with the LLG and bit-line MAC kernels'
+   counters set to 0 before and read after: ``evaluate_system(kind,
+   write_percentile=99.0)`` faults off (bit-equal to phase 2's) and with
+   ``FaultSpec.at_rate(1e-3)`` under no repair and ``REPAIR_SPARE``
+   (t_imc / e_imc = nominal x ``fault_cost_factors``, rtol 1e-12);
+   ``write_error_rate(AFMTJ, 1 V, 250 ps)`` at 4,096 samples (one LLG
+   launch) against ``write_error_rate_scan`` at 512 samples (plain
+   PyTorch on the card) within 3 binomial standard errors of their
+   difference; ``program_bits`` on a seeded 256 x 256 target (error map
+   = the unverified cells); ``write_surface`` for both kinds on
+   ``examples/write_path_study.py``'s grid; ``write_energy_accuracy_
+   surface`` for qwen2-0.5b at 896 -> 4,864, batch 8, four WER targets
+   (nmse not falling as the target loosens, energy not falling as it
+   tightens; one bit-line MAC launch per target); the serving loop
+   (``launch.serve.serve``) with ``ServeEngine`` on qwen2-0.5b at full
+   width in float32 (5 requests, 2 slots, prompt 16, max_new 4), held to
+   the serve contract of ``tests/test_system.py``, AFMTJ ahead of MTJ at
+   p99 TPOT, decode == forward (the reference's 2e-2) and its first
+   prefill against the same parameters on the CPU (1e-3); and the three
+   twins of the slice
+   (``torch_write_path_study``, ``torch_fault_study``,
+   ``torch_serving_study``) in their ``--quick`` form.  Each new LLG
+   launch family (the WER point, the first ``program_bits`` round, the
+   AFMTJ surface's first rounds at 375 K and 0.8 / 1.2 V, the MTJ
+   surface's at 0.8 V) is held bit-identical to C1T1 over its whole
+   horizon in every layout, the ``program_bits`` round and the MTJ round
+   also against the eager plain version over their first
+   ``PHASE8_TRUNC_STEPS`` steps, and timed C1T1 against the rule's layout
+   in turns under ``NO_SLOWER``.
+
 Each kernel's launch counter is set to 0 before its main-path run (phases
 2-3 for the LLG kernel, with its launches by layout, 2 and 6 for the
-write kernel, 5b for the analog kernels, and both in phase 7) and read
-after it (the
+write kernel, 5b for the analog kernels, both in phase 7, and the LLG and
+bit-line MAC kernels in phase 8) and read after it (the
 analog wrappers count their mainloop launches under ``launches``, and the
 split-K reduce pass a split call adds under ``reduce_launches``); the
 second-to-last line is the per-kernel JSON record and the last line
@@ -546,6 +577,11 @@ def phase1(torch, dev, census):
     return records
 
 
+# phase 2's Fig. 4 results by (kind, mode), which phase 8 holds its
+# faults-off calls to
+PHASE2_FIG4 = {}
+
+
 def phase2(torch):
     from repro_torch.circuit import subarray
     from repro_torch.core.device import simulate_write
@@ -597,6 +633,7 @@ def phase2(torch):
                     f"{r.energy_saving:8.3f}x  write op {r.t_write_op * 1e12:8.1f}"
                     f" ps  attempts {r.write_attempts:.3f}")
             results[(kind, mode)] = res
+            PHASE2_FIG4[(kind, mode)] = res
             if mode == "closed-form":
                 ref_sp, ref_es = REF_SUMMARIZE[kind]
                 assert abs(sp / ref_sp - 1) < ANCHOR_RTOL, (kind, sp, ref_sp)
@@ -1837,30 +1874,37 @@ def phase7_launches(rec) -> list:
     return fams
 
 
-def hold_long(kind: str, what: str, launch: dict, census) -> dict:
+def hold_long(kind: str, what: str, launch: dict, census,
+              trunc_steps: int = TRUNC_STEPS) -> dict:
     """A launch of the slice's path held in two parts, each in every
     layout and timed C1T1 against the rule's layout in turns
-    (``hold_launch``): its first ``TRUNC_STEPS`` steps against the eager
-    plain version, and its whole horizon against the kernel's C1T1
-    layout, bit for bit.  Returns the whole horizon's record."""
+    (``hold_launch``): its first ``trunc_steps`` steps against the eager
+    plain version (none when ``trunc_steps`` is 0), and its whole horizon
+    against the kernel's C1T1 layout, bit for bit.  Returns the whole
+    horizon's record."""
     from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
 
     kw = launch["kw"]
     shape = dict(kind=kind, p=launch["p"], dt=launch["dt"],
                  steps=int(kw["step_budget"].max().item()),
                  n_kernel=launch["n_kernel"], state=launch["state"], kw=kw)
-    trunc = dict(shape, n_kernel=min(shape["n_kernel"], TRUNC_STEPS))
-    out_p, ms_p = plain_output(trunc)
-    held = hold_launch(trunc, out_p, ms_p,
-                       f"{what}, first {trunc['n_kernel']} steps", census)
+    held = ms_p = None
+    if trunc_steps:
+        trunc = dict(shape, n_kernel=min(shape["n_kernel"], trunc_steps))
+        out_p, ms_p = plain_output(trunc)
+        held = hold_launch(trunc, out_p, ms_p,
+                           f"{what}, first {trunc['n_kernel']} steps", census)
     out_c1, ms_c1 = cuda_ms(lambda: llg_rk4_kernel(
         shape["state"], shape["p"], shape["dt"], shape["n_kernel"], **kw,
         layout=(1, 1, 0)))
     full = hold_launch(shape, out_c1, ms_c1, f"{what}, whole horizon",
                        census, against="C1T1")
     return dict(full, variation=kw.get("lane_params") is not None,
-                plain_ms=ms_p, plain_steps=trunc["n_kernel"],
-                max_abs_err=max(full["max_abs_err"], held["max_abs_err"]),
+                plain_ms=ms_p,
+                plain_steps=(min(shape["n_kernel"], trunc_steps) if held
+                             else None),
+                max_abs_err=max(full["max_abs_err"],
+                                held["max_abs_err"] if held else 0.0),
                 truncated=held)
 
 
@@ -2124,6 +2168,388 @@ def phase7(torch, dev, census, write_census) -> dict:
     return dict(path, writes=writes, shapes=shapes)
 
 
+# --- phase 8: the write-path and fault-cost remainder, and serving ----------
+
+# steps of the two plain holds of phase 8 (one family per device kind); the
+# eager plain B1 runs 2-3 ms a step on the card
+PHASE8_TRUNC_STEPS = 1001
+# fault costs: t_imc / e_imc against nominal x fault_cost_factors
+FAULT_RTOL = 1e-12
+# decode == forward at full width: the reference's bound
+# (tests/test_models.py::test_decode_matches_forward)
+DECODE_BOUND = 2e-2
+# the first prefill's logits on the card against the same engine's
+# parameters on the CPU (float32, TF32 off)
+SERVE_CPU_ATOL = 1e-3
+WER_TARGETS = (3e-1, 1e-1, 1e-2, 1e-4)
+
+
+def phase8_fault_costs() -> dict:
+    """``evaluate_system(kind, write_percentile=99.0)`` faults off (bit-equal
+    to phase 2's) and with ``FaultSpec.at_rate(1e-3)`` under no repair and
+    ``REPAIR_SPARE`` (t_imc / e_imc = nominal x the fault cost factors,
+    ``array_yield`` the factor's yield)."""
+    from repro_torch.imc import evaluate
+    from repro_torch.imc.faults import REPAIR_SPARE, FaultSpec
+    from repro_torch.imc.mapping import fault_cost_factors
+
+    spec = FaultSpec.at_rate(1e-3)
+    out = {}
+    for kind in ("afmtj", "mtj"):
+        nominal = evaluate.evaluate_system(kind, write_percentile=99.0)
+        want = PHASE2_FIG4[(kind, "p99 write-verify")]
+        for name, r in nominal.items():
+            if dataclasses.asdict(r) != dataclasses.asdict(want[name]):
+                raise AssertionError(f"{kind} {name}: faults-off Fig. 4 "
+                                     f"differs from phase 2's")
+        for repair in (None, REPAIR_SPARE):
+            rname = "none" if repair is None else repair.name
+            y, ovh, stretch = fault_cost_factors(spec, repair)
+            res = evaluate.evaluate_system(kind, write_percentile=99.0,
+                                           faults=spec, repair=repair)
+            for name, r in res.items():
+                n = nominal[name]
+                if not (math.isclose(r.t_imc, n.t_imc * stretch,
+                                     rel_tol=FAULT_RTOL)
+                        and math.isclose(r.e_imc, n.e_imc * ovh,
+                                         rel_tol=FAULT_RTOL)
+                        and r.array_yield == y):
+                    raise AssertionError(f"{kind} {name} {rname}: fault "
+                                         f"charging off the factors")
+            out[f"{kind} {rname}"] = dict(
+                array_yield=y, cell_overhead=ovh, stretch=stretch,
+                mac_speedup=res["mac"].speedup,
+                mac_speedup_nominal=nominal["mac"].speedup)
+            log(f"  evaluate_system {kind} p99 write, rate 1e-3, repair "
+                f"{rname}: yield {y:.3e}, cell overhead {ovh:.4f}, stretch "
+                f"{stretch:.4g}; mac speedup {nominal['mac'].speedup:.3f}x "
+                f"-> {res['mac'].speedup:.4g}x (faults off bit-equal to "
+                f"phase 2)")
+    return out
+
+
+def phase8_wer() -> dict:
+    """``write_error_rate`` (one B1 launch) and the scan baseline on the
+    card at the same point, within ``MC_SIGMAS`` binomial standard errors
+    of a difference of the two estimates at the pooled rate (the
+    reference's ``tests/test_campaign.py`` bound, restated for 4,096 and
+    512 samples)."""
+    from repro_torch.core import montecarlo
+    from repro_torch.core.params import AFMTJ_PARAMS
+    from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
+
+    n_k, n_s = 4096, 512
+    before = llg_rk4_kernel.launches
+    t0 = time.perf_counter()
+    w_k = montecarlo.write_error_rate(AFMTJ_PARAMS, 1.0, 250e-12,
+                                      n_samples=n_k)
+    t_k = time.perf_counter() - t0
+    if llg_rk4_kernel.launches != before + 1:
+        raise AssertionError("write_error_rate was not one LLG launch")
+    t0 = time.perf_counter()
+    w_s = montecarlo.write_error_rate_scan(AFMTJ_PARAMS, 1.0, 250e-12,
+                                           n_samples=n_s)
+    t_s = time.perf_counter() - t0
+    pooled = (w_k * n_k + w_s * n_s) / (n_k + n_s)
+    bound = MC_SIGMAS * math.sqrt(pooled * (1 - pooled) * (1 / n_k + 1 / n_s))
+    log(f"  write_error_rate afmtj 1 V 250 ps: {w_k:.5f} ({n_k} samples, 1 "
+        f"launch, {t_k:.2f} s); scan baseline {w_s:.5f} ({n_s} samples, "
+        f"plain PyTorch on the card, {t_s:.2f} s); |d| {abs(w_k - w_s):.5f} "
+        f"<= {bound:.5f}")
+    if not abs(w_k - w_s) <= bound:
+        raise AssertionError(f"WER {w_k} vs scan {w_s}: outside {bound}")
+    return dict(wer=w_k, wer_scan=w_s, bound=bound, wall_s=t_k,
+                scan_wall_s=t_s)
+
+
+def phase8_writes() -> dict:
+    """``program_bits`` on a seeded 256 x 256 target, ``write_surface`` for
+    both kinds on ``examples/write_path_study.py``'s grid, and
+    ``write_energy_accuracy_surface`` for qwen2-0.5b at its published
+    decode widths (896 -> 4,864, batch 8)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.imc import mapping, write_path
+    from repro_torch.kernels.bitline_mac import bitline_mac_kernel
+
+    out = {}
+    target = np.random.default_rng(8).integers(0, 2, (256, 256))
+    res, err = write_path.program_bits(target, "afmtj")
+    flipped = int(target.sum())
+    log(f"  program_bits afmtj 256 x 256: {flipped} flipped cells, "
+        f"{res.rounds} rounds, attempts {res.attempts_mean:.4f}, residual "
+        f"errors {int(err.sum())}")
+    if res.attempts.size != flipped or int(err.sum()) != int(
+            (~res.success).sum()) or err[target == 0].any():
+        raise AssertionError("program_bits: error map off the write result")
+    out["program_bits"] = dict(flipped=flipped, rounds=res.rounds,
+                               attempts_mean=res.attempts_mean,
+                               errors=int(err.sum()))
+    grid = dict(afmtj=(300.0, 375.0), mtj=(300.0,))
+    for kind, temps in grid.items():
+        surf = write_path.write_surface(
+            kind, voltages=(0.8, 1.0, 1.2), temperatures=temps, n_cells=128,
+            policy=write_path.WritePolicy(v_write=1.0, max_attempts=6))
+        for ti, temp in enumerate(temps):
+            log(f"  write_surface {kind} {temp:.0f} K (pulse "
+                f"{surf.pulses[0] * 1e12:.0f} ps), V 0.8 / 1.0 / 1.2: "
+                f"attempts {surf.attempts_mean[ti, :, 0].round(3).tolist()}, "
+                f"residual BER {surf.residual_ber[ti, :, 0].tolist()}")
+        if not ((surf.residual_ber >= 0) & (surf.residual_ber <= 1)).all() \
+                or surf.residual_ber.shape != (len(temps), 3, 1):
+            raise AssertionError(f"{kind}: write surface {surf}")
+        out[f"write_surface {kind}"] = dict(
+            attempts=surf.attempts_mean[..., 0].tolist(),
+            residual_ber=surf.residual_ber[..., 0].tolist())
+    b3 = bitline_mac_kernel.launches
+    pts = mapping.write_energy_accuracy_surface(
+        get_arch("qwen2-0.5b"), kind="afmtj", wer_targets=WER_TARGETS,
+        policy=write_path.WritePolicy(v_write=1.0, pulse_margin=0.9),
+        cap_k=896, cap_n=4864, batch=8)
+    if bitline_mac_kernel.launches - b3 != len(WER_TARGETS):
+        raise AssertionError("write_energy_accuracy_surface did not launch "
+                             "the bit-line MAC kernel once per target")
+    loose_first = [pts[t] for t in sorted(pts, reverse=True)]
+    for pt in loose_first:
+        log(f"    WER target {pt.wer_target:.0e}: budget "
+            f"{pt.attempts_budget}, write BER {pt.write_ber:.3e}, "
+            f"{pt.e_write_bit * 1e15:.2f} fJ/bit, nmse "
+            f"{pt.report.nmse:.4e}, cosine {pt.report.cosine:.6f}")
+    for a, b in zip(loose_first, loose_first[1:]):
+        if not (a.report.nmse >= b.report.nmse
+                and b.e_write_bit >= a.e_write_bit):
+            raise AssertionError("the write/accuracy surface is not "
+                                 "monotone in the WER target")
+    out["write_accuracy"] = [dict(
+        target=pt.wer_target, budget=pt.attempts_budget,
+        write_ber=pt.write_ber, e_write_bit=pt.e_write_bit,
+        nmse=pt.report.nmse, cosine=pt.report.cosine) for pt in loose_first]
+    return out
+
+
+def phase8_serving(torch) -> dict:
+    """qwen2-0.5b at full width (24 layers, d 896, vocab 151,936, float32)
+    through the serving loop: 5 requests, 2 slots, prompt 16, max_new 4.
+    Holds the serve contract of ``tests/test_system.py``, AFMTJ ahead of
+    MTJ at p99 TPOT, decode == forward, and the first prefill's logits
+    against the same parameters on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_arch("qwen2-0.5b"), compute_dtype="float32")
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, 16, 4, 2, seed=0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    first = {}
+    prefill = engine.prefill
+
+    def keep_first(histories, frontends):
+        out = prefill(histories, frontends)
+        first.setdefault("histories", [np.array(h) for h in histories])
+        first.setdefault("logits", engine.last_logits.clone())
+        return out
+
+    engine.prefill = keep_first
+    stats = serve(cfg, engine, 5, 2, 16, 4, log=lambda m: log("  " + m))
+    wall = stats["elapsed_s"]
+    dev = stats["device"]
+    log(f"  serving qwen2-0.5b full width on the card: {wall:.3f} s for "
+        f"{stats['generated_tokens']} tokens "
+        f"({stats['generated_tokens'] / wall:.1f} tokens/s; parameters "
+        f"{t_init:.2f} s); completions {stats['completions']}")
+    ok = (stats["served"] == 5 and stats["prefill_tokens"] == 5
+          and stats["decode_tokens"] == 15 and stats["prefills"] >= 3
+          and [len(c) for c in stats["completions"]] == [4] * 5)
+    for tech in ("afmtj", "mtj", "cpu"):
+        r = dev[tech]
+        ok = ok and r["sim_time_s"] > 0 and r["energy_j"] > 0 and             r["ttft_p99_s"] >= r["ttft_p50_s"] > 0
+    if not ok:
+        raise AssertionError(f"serve contract: {stats}")
+    if not dev["afmtj"]["tpot_p99_s"] < dev["mtj"]["tpot_p99_s"]:
+        raise AssertionError("AFMTJ does not beat MTJ at p99 TPOT")
+    log(f"  p99 TPOT afmtj {dev['afmtj']['tpot_p99_s']:.4e} s < mtj "
+        f"{dev['mtj']['tpot_p99_s']:.4e} s (simulated clocks)")
+
+    # decode == forward at full width
+    S = 16
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (2, S + 1))).cuda()
+    with torch.no_grad():
+        _, cache = M.serve_prefill(engine.params, cfg, {"tokens": toks[:, :S]},
+                                   max_seq=S + 4)
+        dec, _ = M.serve_step(engine.params, cfg, cache, toks[:, S:S + 1])
+        full, _ = M.serve_prefill(engine.params, cfg, {"tokens": toks},
+                                  max_seq=S + 4)
+    gap = (dec[:, 0] - full[:, -1]).abs()
+    decode_gap = gap.max().item()
+    if not bool((gap <= DECODE_BOUND + DECODE_BOUND
+                 * full[:, -1].abs()).all()):
+        raise AssertionError(f"decode vs forward: {decode_gap}")
+    # the first prefill against the same parameters on the CPU
+    hist = first["histories"]
+    window = engine.window
+    tok = np.zeros((2, window), np.int64)
+    for s, h in enumerate(hist):
+        tok[s, window - h.size:] = h[-window:]
+    params_cpu = M.params_to(engine.params, "cpu")
+    with torch.no_grad():
+        cpu_logits, _ = M.serve_prefill(params_cpu, cfg, {
+            "tokens": torch.from_numpy(tok)}, max_seq=engine.max_seq)
+    cpu_gap = (first["logits"].cpu() - cpu_logits).abs().max().item()
+    log(f"  decode vs forward at full width: max |d| {decode_gap:.3e} "
+        f"(bound {DECODE_BOUND} abs + rel); first prefill card vs CPU: "
+        f"max |d| {cpu_gap:.3e} (bound {SERVE_CPU_ATOL})")
+    if not cpu_gap <= SERVE_CPU_ATOL:
+        raise AssertionError(f"prefill card vs CPU: {cpu_gap}")
+    return dict(wall_s=wall, tokens=stats["generated_tokens"],
+                tokens_per_s=stats["generated_tokens"] / wall,
+                init_s=t_init, decode_gap=decode_gap, cpu_gap=cpu_gap,
+                tpot_p99={t: dev[t]["tpot_p99_s"] for t in dev},
+                ttft_p99={t: dev[t]["ttft_p99_s"] for t in dev},
+                prefills=stats["prefills"])
+
+
+def phase8_twins() -> dict:
+    """The three twins of this slice in their ``--quick`` form."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_fault_study
+    import torch_serving_study
+    import torch_write_path_study
+
+    out = {}
+    for mod in (torch_write_path_study, torch_fault_study,
+                torch_serving_study):
+        t0 = time.perf_counter()
+        res = mod.run(quick=True)
+        wall = time.perf_counter() - t0
+        for line in mod.report(res):
+            log("    " + line)
+        log(f"  {mod.__name__}.run(quick=True): {wall:.2f} s")
+        out[mod.__name__] = dict(wall_s=wall)
+    return out
+
+
+def phase8_path(torch, rec) -> dict:
+    """The slice's path through its entry points (the LLG and bit-line MAC
+    kernels' counters set to 0 just before and read just after), the LLG
+    launches recorded by family."""
+    from repro_torch.circuit import subarray
+    from repro_torch.imc import write_margin, write_path
+    from repro_torch.kernels import analog_mac, llg_rk4
+    from repro_torch.kernels.bitline_mac import bitline_mac_kernel
+
+    log("phase 8: the write-path and fault-cost remainder, and serving, at "
+        "full size")
+    for f in (write_margin.wer_margined_pulse,
+              write_path.measured_write_timings, write_path.nominal_pulse,
+              subarray._characterize_write):
+        f.cache_clear()
+    llg_rk4.reset_counts()
+    analog_mac.reset_counts(bitline_mac_kernel)
+    walls = {}
+    out = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        r = fn()
+        walls[name] = time.perf_counter() - t
+        return r
+
+    out["fault_costs"] = timed("fault costs", phase8_fault_costs)
+    rec.tag = "WER point"
+    out["wer"] = timed("write_error_rate + scan", phase8_wer)
+    rec.tag = "writes"
+    out["writes"] = timed("program_bits + write_surface + write/accuracy",
+                          phase8_writes)
+    rec.tag = None
+    out["serving"] = timed("serving", lambda: phase8_serving(torch))
+    out["twins"] = timed("twins", phase8_twins)
+    launches = llg_rk4.llg_rk4_kernel.launches
+    b3 = bitline_mac_kernel.launches
+    for name, sec in walls.items():
+        log(f"  {name}: {sec:.2f} s")
+    log(f"  phase 8 path: {sum(walls.values()):.1f} s; LLG launches "
+        f"{launches}, bit-line MAC launches {b3} "
+        f"({bitline_mac_kernel.reduce_launches} reduce passes)")
+    if launches <= 0 or b3 <= 0:
+        raise AssertionError("phase 8 never launched the LLG or the bit-line "
+                             "MAC kernel")
+    return dict(out, walls=walls, launches=launches, bitline_launches=b3)
+
+
+def phase8_launches(rec) -> list:
+    """(kind, what, recorded launch, plain steps) of every new launch
+    family: the WER point, the first program_bits round, the AFMTJ
+    write_surface's first rounds at 375 K and 0.8 / 1.2 V, and (the MTJ's
+    plain-held family) its first round at 0.8 V."""
+    def first_round(volt, pick):
+        for r in rec.launches["writes"]:
+            v = float(r["state"][6, 0].item())
+            if abs(v - volt) < 1e-6 and pick(r):
+                return r
+        raise AssertionError(f"no write_surface round at {volt} V")
+
+    writes = rec.launches["writes"]
+    sig = {id(r): float(r["kw"]["thermal_sigma"].max().item())
+           for r in writes}
+    afmtj = [r for r in writes if r["p"].n_sublattices == 2]
+    hot = max(sig[id(r)] for r in afmtj if r["state"].shape[1] <= 512)
+    prog = max(afmtj, key=lambda r: r["state"].shape[1])
+    fams = [("afmtj", "WER point", rec.launches["WER point"][0], 0),
+            ("afmtj", "program_bits round 1", prog, PHASE8_TRUNC_STEPS)]
+    for volt in (0.8, 1.2):
+        fams.append(("afmtj", f"write_surface 375 K {volt} V round 1",
+                     first_round(volt, lambda r: r["p"].n_sublattices == 2
+                                 and sig[id(r)] == hot), 0))
+    fams.append(("mtj", "write_surface 300 K 0.8 V round 1",
+                 first_round(0.8, lambda r: r["p"].n_sublattices == 1),
+                 PHASE8_TRUNC_STEPS))
+    return fams
+
+
+def phase8(torch, dev, census) -> dict:
+    """Phase 8: the slice's path (``phase8_path``) with a launch recorder
+    on the campaign engine's kernel entry, then every new LLG launch
+    family held bit-identical to C1T1 over its whole horizon in every
+    layout (two of them, one per device kind, also against the plain
+    version over their first ``PHASE8_TRUNC_STEPS`` steps), the rule's
+    layout no slower than C1T1."""
+    from repro_torch.campaign import engine
+
+    t0 = time.perf_counter()
+    cache = ROOT / "build" / "smoke-campaign-cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    rec = LaunchRecorder(engine.llg_rk4_kernel)
+    engine.llg_rk4_kernel = rec
+    try:
+        path = phase8_path(torch, rec)
+    finally:
+        engine.llg_rk4_kernel = rec.kernel
+    shutil.rmtree(cache, ignore_errors=True)
+    log("phase 8 holds: every new LLG launch family")
+    shapes = [hold_long(kind, what, launch, census, trunc)
+              for kind, what, launch, trunc in phase8_launches(rec)]
+    require_no_slower(shapes)
+    log("  phase 8 launches (lanes x steps; horizon): layout, C1T1 ms, rule "
+        "ms, bound ms, issue floor ms (rule), plain ms (first steps)")
+    for x in shapes:
+        plain = (f"{x['plain_ms']:.0f} ({x['plain_steps']})"
+                 if x["plain_ms"] is not None else "-")
+        log(f"    {x['kind']} {x['what']} ({x['lanes']} x {x['steps']}; "
+            f"{x['horizon']}): {x['layout']}, {x['ms_c1t1']:.3f}, "
+            f"{x['ms']:.3f}, {x['bound_ms']:.4f} ({x['bound_unit']}), "
+            f"{x['issue_floor_ms']:.4f}, {plain}")
+    total = time.perf_counter() - t0
+    log(f"  phase 8 total: {total:.1f} s")
+    return dict(path, shapes=shapes, total_s=total)
+
+
 def main() -> int:
     import torch
 
@@ -2203,6 +2629,7 @@ def main() -> int:
     require_b5_no_slower(analog_shapes)
     twins = phase6(torch)
     corners = phase7(torch, dev, census, write_census)
+    remainder = phase8(torch, dev, census)
 
     record = {"kernels": [{
         "name": "llg_rk4",
@@ -2245,6 +2672,12 @@ def main() -> int:
         "launches_phase7": corners["launches"],
         "launch_layouts_phase7": corners["launch_layouts"],
         "phase7_shapes": corners["shapes"],
+        # phase 8, the write-path / fault-cost remainder and serving: its
+        # own count (set to 0 before it) and its new launch families (the
+        # whole horizon against C1T1; two against the plain version over
+        # their first PHASE8_TRUNC_STEPS steps)
+        "launches_phase8": remainder["launches"],
+        "phase8_shapes": remainder["shapes"],
     }]}
     replaces = {"bitline_mac": "src/repro/kernels/bitline_mac.py:87",
                 "xnor_gemm": "src/repro/kernels/xnor_gemm.py:76",
@@ -2264,6 +2697,9 @@ def main() -> int:
             "launches": path["launches"][name],
             # calls that split K also launch the source's reduce_kernel
             "reduce_launches": path["reduce_launches"][name],
+            # phase 8's write/accuracy surface and write-path twin (B3 only)
+            **({"launches_phase8": remainder["bitline_launches"]}
+               if name == "bitline_mac" else {}),
             "max_abs_err": (0.0 if errs[name] is None else
                             max(x[errs[name]] for x in analog_shapes)),
             "ms": r["ms"],
@@ -2312,6 +2748,8 @@ def main() -> int:
     record["phase7"] = {k: v for k, v in corners.items()
                         if k not in ("shapes", "writes", "launch_layouts",
                                      "twins")}
+    record["phase8"] = {k: v for k, v in remainder.items()
+                        if k != "shapes"}
     record["model_path"] = {k: v for k, v in path.items()
                             if k not in ("launches", "reduce_launches",
                                          "launch_shapes")}

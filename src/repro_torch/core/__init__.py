@@ -8,7 +8,8 @@ Layers:
   device      — single-junction write with self-consistent STT drive
                 (the write loop runs as a CUDA kernel on the card), voltage
                 sweeps, read
-  montecarlo  — Brown's thermal-field sigma
+  montecarlo  — Brown's thermal-field sigma, the write-error rate (one
+                campaign launch) and its per-step scan baseline
 """
 from repro_torch.core.params import AFMTJ_PARAMS, MTJ_PARAMS, DeviceParams  # noqa: F401
 from repro_torch.core.device import simulate_write, write_sweep, simulate_read  # noqa: F401

@@ -1,6 +1,6 @@
 """System-level evaluation: IMC hierarchy vs CPU baseline (paper Fig. 4).
 
-Port of ``repro.imc.evaluate`` (faults and repair are not ported yet).
+Port of ``repro.imc.evaluate``.
 Latency: the controller retires row-granular ops; logic and write-back
 pipeline, so the stage time is max(logic, write) + 0.1 min(logic, write).
 Energy: per-bit device energies + per-row-op peripheral energy.
@@ -10,8 +10,14 @@ measured retention and read-disturb budgets) makes the scrub controller a
 steady-state bandwidth tax: every ``interval`` each resident data row is
 read and rewritten.  ``evaluate_workload(..., refresh=...)`` charges that
 duty cycle into ``t_imc`` / ``e_imc`` and reports it as ``t_refresh`` /
-``e_refresh``.  With every read-path option off the numbers are the
-nominal Fig. 4 numbers, bit for bit.
+``e_refresh``.
+
+Hard faults (DESIGN.md §13): a ``FaultSpec`` (with an optional
+``RepairPolicy``) charges the repair-capacity model of
+``imc.mapping.fault_cost_factors``: latency stretched by overhead / yield
+(condemned arrays' work re-runs on survivors), energy by the spare-line /
+ECC cell overhead, the yield reported as ``array_yield``.  With every
+option off the numbers are the nominal Fig. 4 numbers, bit for bit.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import statistics
 from typing import TYPE_CHECKING, Dict, Optional
 
 if TYPE_CHECKING:  # pragma: no cover - read_path imports the circuit stack
+    from repro_torch.imc.faults import FaultSpec, RepairPolicy
     from repro_torch.imc.read_path import RefreshPolicy
 
 from repro_torch.imc.cpu_model import CORTEX_A72, CPUModel
@@ -45,6 +52,9 @@ class SystemResult:
     t_refresh: float = 0.0
     e_refresh: float = 0.0
     refresh_interval: float = math.inf
+    # hard-fault provenance: the fraction of arrays the repair budget
+    # salvages (1.0 without a FaultSpec)
+    array_yield: float = 1.0
 
     @property
     def speedup(self) -> float:
@@ -57,7 +67,9 @@ class SystemResult:
 
 def evaluate_workload(w: Workload, hier: IMCHierarchy,
                       cpu: CPUModel = CORTEX_A72,
-                      refresh: Optional["RefreshPolicy"] = None
+                      refresh: Optional["RefreshPolicy"] = None,
+                      faults: Optional["FaultSpec"] = None,
+                      repair: Optional["RepairPolicy"] = None
                       ) -> SystemResult:
     t_cpu, e_cpu = cpu.kernel_time_energy(
         w.n_elems, w.cpu_instrs_per_elem, w.cpu_simd_fraction,
@@ -101,12 +113,23 @@ def evaluate_workload(w: Workload, hier: IMCHierarchy,
                   + 2.0 * data_rows * level.spec.e_periph_row_op)
         e_refresh = (t_imc / interval) * e_pass
         e_imc = e_imc + e_refresh
+
+    # hard faults: condemned arrays' work re-runs on survivors (latency x
+    # overhead / yield); spare lines and ECC cost energy on every access
+    array_yield = 1.0
+    if faults is not None:
+        from repro_torch.imc.mapping import fault_cost_factors
+
+        array_yield, cell_ovh, fault_stretch = fault_cost_factors(
+            faults, repair)
+        t_imc = t_imc * fault_stretch
+        e_imc = e_imc * cell_ovh
     return SystemResult(w.name, t_cpu, e_cpu, t_imc, e_imc,
                         t_write_op=tm.t_write,
                         write_attempts=tm.write_attempts,
                         write_residual_ber=tm.write_residual_ber,
                         t_refresh=t_refresh, e_refresh=e_refresh,
-                        refresh_interval=interval)
+                        refresh_interval=interval, array_yield=array_yield)
 
 
 def evaluate_system(kind: str = "afmtj", v_write: float = 1.0,
@@ -115,18 +138,22 @@ def evaluate_system(kind: str = "afmtj", v_write: float = 1.0,
                     read_percentile: Optional[float] = None,
                     offset_sigma: float = 0.0,
                     refresh: Optional["RefreshPolicy"] = None,
+                    faults: Optional["FaultSpec"] = None,
+                    repair: Optional["RepairPolicy"] = None,
                     device=None) -> Dict[str, SystemResult]:
     """Fig. 4 over the paper's six workloads.  ``wer_target`` sizes write
     pulses from the thermal-tail campaign; ``write_percentile`` (e.g. 99.0)
     uses the measured write-verify row time at that percentile;
     ``read_percentile`` / ``offset_sigma`` do the same for the sense time
-    (``imc.read_path``), and ``refresh`` charges a measured scrub policy.
-    All off keeps the nominal Fig. 4 numbers bit for bit."""
+    (``imc.read_path``), ``refresh`` charges a measured scrub policy and
+    ``faults`` / ``repair`` the hard-fault repair model.  All off keeps
+    the nominal Fig. 4 numbers bit for bit."""
     hier = build_hierarchy(kind, v_write=v_write, wer_target=wer_target,
                            write_percentile=write_percentile,
                            read_percentile=read_percentile,
                            offset_sigma=offset_sigma, device=device)
-    return {name: evaluate_workload(w, hier, refresh=refresh)
+    return {name: evaluate_workload(w, hier, refresh=refresh,
+                                    faults=faults, repair=repair)
             for name, w in WORKLOADS.items()}
 
 

@@ -15,12 +15,18 @@ decode-step projection computed through ``imc.analog_pipeline`` and scored
 against the float32 matmul, and the accuracy-vs-adc_bits-vs-TMR surface,
 projection level or, with ``model=``, model level (``imc.model_analog``).
 
-The fault-repair yield model and ``write_energy_accuracy_surface`` wait
-for ROADMAP A4b + A8b.
+The hard-fault repair yield model (DESIGN.md §13): the probability an
+array's defects fit its repair capacity, the spare-line / ECC cell
+overhead, and the (yield, overhead, latency stretch) factors the cost
+models charge.  And the write/accuracy trade: ``write_energy_accuracy_
+surface`` sizes write-verify attempt budgets from the measured
+single-pulse WER, measures what each budget costs (``imc.write_path``) and
+scores the decode projection with the residual bit errors injected.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -105,6 +111,76 @@ def map_all(archs: Dict[str, ArchConfig], device=None
     return out
 
 
+# --- hard-fault repair: capacity yield model + area/energy overheads --------
+#
+# The closed-form companion of ``imc.faults``' defect planes that the cost
+# models charge (DESIGN.md §13): the probability an XBAR x XBAR array's
+# defects fit the repair capacity (arrays that do not are fused out and
+# their work re-runs on survivors, stretching latency by 1 / yield), and
+# the spare-line / ECC cell overheads every array pays.  Pure float64
+# Python, operation for operation the reference's.
+
+def _poisson_cdf(k: int, lam: float) -> float:
+    """P(X <= k) for X ~ Poisson(lam), summed term by term."""
+    if lam <= 0.0:
+        return 1.0
+    term = math.exp(-lam)
+    total = term
+    for i in range(1, int(k) + 1):
+        term *= lam / i
+        total += term
+    return min(total, 1.0)
+
+
+def repair_yield(faults, policy=None, xbar: int = XBAR) -> float:
+    """P(an XBAR x XBAR differential array is usable under ``policy``).
+
+    A row is defective if its word line is dead or it holds more
+    stuck differential pairs than ECC corrects (pair masking absorbs them
+    all; without it one uncorrected stuck pair condemns the row).
+    Defective row / column counts are Poisson and must fit the spares;
+    the yield is the product of both fits."""
+    from repro_torch.imc.faults import REPAIR_NONE
+
+    pol = policy or REPAIR_NONE
+    p_cell = min(faults.cell_fault_rate, 1.0)
+    p_pair = 1.0 - (1.0 - p_cell) ** 2
+    if pol.mask_pairs:
+        p_row_cells = 0.0          # masked pairs never condemn a row
+    else:
+        lam_pair = xbar * p_pair
+        p_row_cells = 1.0 - _poisson_cdf(pol.ecc_cells_per_row, lam_pair)
+    p_row = min(faults.dead_row_rate
+                + (1.0 - faults.dead_row_rate) * p_row_cells, 1.0)
+    y_rows = _poisson_cdf(pol.spare_rows, xbar * p_row)
+    y_cols = _poisson_cdf(pol.spare_cols, xbar * faults.dead_col_rate)
+    return y_rows * y_cols
+
+
+def repair_cell_overhead(policy=None, xbar: int = XBAR) -> float:
+    """Cell / area factor a repaired array pays: the spare lines and the
+    ECC side table (9 cells per correctable entry: 8-bit value + valid)."""
+    from repro_torch.imc.faults import REPAIR_NONE
+
+    pol = policy or REPAIR_NONE
+    area = (1.0 + pol.spare_rows / xbar) * (1.0 + pol.spare_cols / xbar)
+    ecc = 1.0 + 9.0 * pol.ecc_cells_per_row / xbar
+    return area * ecc
+
+
+def fault_cost_factors(faults, policy=None, xbar: int = XBAR
+                       ) -> Tuple[float, float, float]:
+    """(array_yield, cell_overhead, latency_stretch) for the cost models.
+    Latency stretches by overhead / yield, the yield floored at 1e-3 so a
+    hopeless (rate, policy) point stays finite; (1, 1, 1) without an
+    active ``FaultSpec``."""
+    if faults is None or not faults.any_faults:
+        return 1.0, 1.0, 1.0
+    y = repair_yield(faults, policy, xbar)
+    ovh = repair_cell_overhead(policy, xbar)
+    return y, ovh, ovh / max(y, 1e-3)
+
+
 def decode_projection_shapes(cfg: ArchConfig, cap_k: int = 512,
                              cap_n: int = 512) -> Tuple[int, int]:
     """The arch's decode-dominant GEMV (d_model -> FFN fan-out), capped."""
@@ -187,4 +263,70 @@ def accuracy_surface(
                                 variation=variation)
             out[(bits, tmr)] = decode_projection_accuracy(
                 cfg, kind=kind, analog_cfg=acfg, device=dev, **kw)
+    return out
+
+
+# --- functional write path: accuracy vs the measured cost of writing -------
+
+@dataclasses.dataclass(frozen=True)
+class WriteAccuracyPoint:
+    """One (WER target) operating point of the write/accuracy trade."""
+
+    wer_target: float
+    attempts_budget: int       # verify retries allotted to reach the target
+    write_ber: float           # residual BER injected into programming
+    e_write_bit: float         # measured mean write energy per cell [J]
+    t_write_mean: float        # measured mean per-cell write latency [s]
+    attempts_mean: float       # measured mean pulses per cell
+    report: object             # decode-projection AccuracyReport at that BER
+
+
+def write_energy_accuracy_surface(
+    cfg: ArchConfig,
+    kind: str = "afmtj",
+    wer_targets: Sequence[float] = (3e-1, 1e-1, 1e-2, 1e-4),
+    v_write: float = 1.0,
+    policy=None,
+    n_cells: int = 512,
+    analog_cfg=None,
+    max_attempt_budget: int = 64,
+    device=None,
+    **kw,
+) -> Dict[float, WriteAccuracyPoint]:
+    """Accuracy-vs-write-energy surface for one arch.  A single-pulse probe
+    measures the WER of one attempt; each residual-WER target sizes a
+    geometric attempt budget from it (capped at ``max_attempt_budget``),
+    the write-verify scheduler measures that budget's energy, latency and
+    residual BER (every write round one launch of the LLG kernel), and the
+    residual errors go into the analog read path (``AnalogConfig.
+    write_ber``) to score the decode projection (the bit-line MAC kernel).
+    When every sampled cell verified, the BER falls back to the geometric
+    estimate ``wer1 ** k``."""
+    from repro_torch.imc.analog_pipeline import AnalogConfig
+    from repro_torch.imc.write_path import WritePolicy, write_verify
+
+    dev = resolve_device(device)
+    pol = policy or WritePolicy(v_write=v_write)
+    probe = write_verify(kind, n_cells,
+                         dataclasses.replace(pol, max_attempts=1), dev)
+    wer1 = probe.single_pulse_wer
+    out = {}
+    for target in wer_targets:
+        if 0.0 < wer1 < 1.0:
+            k = max(1, math.ceil(math.log(target) / math.log(wer1)))
+            k = min(k, int(max_attempt_budget))
+        else:
+            k = 1 if wer1 == 0.0 else int(max_attempt_budget)
+        r = write_verify(kind, n_cells,
+                         dataclasses.replace(pol, max_attempts=k), dev)
+        ber = r.residual_ber if r.residual_ber > 0.0 else float(wer1 ** k)
+        acfg = dataclasses.replace(analog_cfg or AnalogConfig(),
+                                   write_ber=float(ber))
+        rep = decode_projection_accuracy(cfg, kind=kind, analog_cfg=acfg,
+                                         device=dev, **kw)
+        out[float(target)] = WriteAccuracyPoint(
+            wer_target=float(target), attempts_budget=k,
+            write_ber=float(ber), e_write_bit=r.energy_mean(),
+            t_write_mean=float(r.latency.mean()),
+            attempts_mean=r.attempts_mean, report=rep)
     return out

@@ -406,7 +406,7 @@ def analog_model_logits(
     MVM, on ``device`` (None = the CUDA device; ``params`` and ``tokens``
     are moved there)."""
     dev = resolve_device(device)
-    params = _params_to(params, dev)
+    params = model_mod.params_to(params, dev)
     tokens = torch.as_tensor(tokens).to(dev)
     if mode == "fake":
         apply_fet, g_scale = _systematic_g_scale(acfg)
@@ -434,12 +434,6 @@ def analog_model_logits(
     else:
         raise ValueError(f"unknown mode {mode!r}")
     return model_forward_logits(params, cfg, tokens, hook)
-
-
-def _params_to(params, dev):
-    if torch.is_tensor(params):
-        return params.to(dev)
-    return {k: _params_to(v, dev) for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,10 @@ while each round draws a fresh tilt (``grid.tilt_draws``, as a nominal
 round of the same seed draws it) scaled by the cell's own theta0 and a
 fresh thermal stream; energy uses the cell's own conductances.
 ``write_verify_corners`` runs one schedule per corner of a spec.
+``program_bits`` programs a bit matrix (one ``write_verify`` over the
+flipped cells, scattered back into a residual error map) and
+``write_surface`` measures the retry / latency / energy maps over the
+write operating point (temperature x voltage x pulse).
 
 Conventions (as the reference): attempts are independent thermal trials
 (fresh tilt and noise stream per round); per-attempt energy charges G_P up
@@ -27,7 +31,7 @@ import dataclasses
 import functools
 import math
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,6 +110,11 @@ class ArrayWriteResult:
         return self.policy.cycle_overhead + self.pulse
 
     @property
+    def latency(self) -> np.ndarray:
+        """(cells,) total per-cell write latency [s]."""
+        return self.attempts * self.cycle
+
+    @property
     def attempts_mean(self) -> float:
         return float(self.attempts.mean()) if self.attempts.size else 0.0
 
@@ -119,8 +128,16 @@ class ArrayWriteResult:
             return 0.0
         return float(1.0 - (self.success & (self.attempts == 1)).mean())
 
+    def latency_percentile(self, q) -> np.ndarray:
+        return np.percentile(self.latency, q)
+
     def energy_mean(self) -> float:
         return float(self.energy.mean()) if self.energy.size else 0.0
+
+    def retry_histogram(self) -> np.ndarray:
+        """(max_attempts + 1,) count of cells by attempts used."""
+        return np.bincount(self.attempts,
+                           minlength=self.policy.max_attempts + 1)
 
     def row_attempts(self, cols: int) -> np.ndarray:
         """(rows,) attempts a row-granular controller pays per row (the
@@ -283,6 +300,28 @@ def write_verify_corners(kind: str, n_cells: int,
             for ci, corner in enumerate(spec.corners)}
 
 
+def program_bits(target: np.ndarray, kind: str = "afmtj",
+                 policy: WritePolicy = WritePolicy(),
+                 current: Optional[np.ndarray] = None,
+                 device=None) -> Tuple[ArrayWriteResult, np.ndarray]:
+    """Program a (rows, cols) bit matrix: pulses go only to cells whose
+    target differs from ``current`` (default: an erased all-zeros array),
+    both directions modelled by the P -> AP transient.  Returns the flipped
+    cells' write statistics and the residual bit-error map (cells still
+    stale after ``policy.max_attempts``)."""
+    target = np.asarray(target)
+    if target.ndim != 2:
+        raise ValueError(f"program_bits takes a 2-D bit matrix, got shape "
+                         f"{target.shape}")
+    cur = (np.zeros_like(target) if current is None
+           else np.asarray(current))
+    flip = target != cur
+    res = write_verify(kind, int(flip.sum()), policy, device)
+    error_map = np.zeros(target.shape, dtype=bool)
+    error_map[flip] = ~res.success
+    return res, error_map
+
+
 @dataclasses.dataclass(frozen=True)
 class MeasuredWrite:
     """Distribution summary the subarray timing model consumes."""
@@ -331,3 +370,54 @@ def measured_write_timings(
         pulse=res.pulse,
         percentile=float(percentile),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class WriteSurface:
+    """Measured write statistics over (temperature x voltage x pulse)."""
+
+    kind: str
+    voltages: Tuple[float, ...]
+    pulses: Tuple[float, ...]
+    temperatures: Tuple[float, ...]
+    residual_ber: np.ndarray     # (n_T, n_V, n_P)
+    attempts_mean: np.ndarray    # (n_T, n_V, n_P)
+    latency_mean: np.ndarray     # (n_T, n_V, n_P) [s]
+    energy_mean: np.ndarray      # (n_T, n_V, n_P) [J]
+
+
+def write_surface(kind: str, voltages: Tuple[float, ...] = (1.0,),
+                  pulses: Optional[Tuple[float, ...]] = None,
+                  temperatures: Optional[Tuple[float, ...]] = None,
+                  n_cells: int = 256,
+                  policy: WritePolicy = WritePolicy(),
+                  device=None) -> WriteSurface:
+    """Residual bit-error / retry / cost maps vs the write operating point:
+    one ``write_verify`` schedule per (T, V, pulse) point, the temperature
+    through ``WritePolicy.temperature``.  ``pulses=None`` uses the
+    device-nominal pulse only."""
+    p = params_for(kind)
+    pulses = tuple(float(x) for x in (
+        pulses if pulses is not None
+        else (policy.resolved_pulse(kind, device),)))
+    temperatures = tuple(float(x) for x in (
+        temperatures if temperatures is not None else (p.temperature,)))
+    voltages = tuple(float(x) for x in voltages)
+    shape = (len(temperatures), len(voltages), len(pulses))
+    ber = np.zeros(shape)
+    att = np.zeros(shape)
+    lat = np.zeros(shape)
+    en = np.zeros(shape)
+    for ti, temp in enumerate(temperatures):
+        for vi, v in enumerate(voltages):
+            for pi, pw in enumerate(pulses):
+                pol = dataclasses.replace(policy, v_write=v, pulse=pw,
+                                          temperature=temp)
+                r = write_verify(kind, n_cells, pol, device)
+                ber[ti, vi, pi] = r.residual_ber
+                att[ti, vi, pi] = r.attempts_mean
+                lat[ti, vi, pi] = float(r.latency.mean())
+                en[ti, vi, pi] = r.energy_mean()
+    return WriteSurface(kind=kind, voltages=voltages, pulses=pulses,
+                        temperatures=temperatures, residual_ber=ber,
+                        attempts_mean=att, latency_mean=lat, energy_mean=en)

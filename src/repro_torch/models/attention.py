@@ -1,14 +1,14 @@
-"""Grouped-query self-attention over a full sequence (port of the
-full-sequence path of ``repro.models.attention``): QKV projections (with
-bias, per-head q/k RMSNorm, RoPE), the materialized-score path and the
-chunked online-softmax path, and the output projection.
+"""Grouped-query self-attention (port of ``repro.models.attention``): QKV
+projections (with bias, per-head q/k RMSNorm, RoPE), the
+materialized-score path and the chunked online-softmax path over a full
+sequence, single-token decode against a preallocated KV cache, and the
+output projection.
 
 The arithmetic mirrors the reference's jnp step by step (einsums, float32
 scores, additive -1e30 mask, softmax cast back to the compute dtype), so
 the port compares with it operation by operation; it deliberately does
 not call a fused attention operator.  Cross and encoder attention, like
-the port's other unported blocks, wait for ROADMAP A9b; decode with a KV
-cache waits for A10.
+the port's other unported blocks, wait for ROADMAP A9b.
 """
 from __future__ import annotations
 
@@ -163,3 +163,48 @@ def self_attention(p, x, cfg: ArchConfig, positions, mixer: str):
     fn = chunked_attention if S > CHUNK_THRESHOLD else full_attention
     o = fn(q, k, v, cfg, causal=True, window=window)
     return _merge_heads(p, o, cfg)
+
+
+# --------------------------------------------------------------------------
+# decode (single token, KV cache)
+# --------------------------------------------------------------------------
+def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
+                  device=None) -> Dict[str, torch.Tensor]:
+    kv, hd = cfg.n_kv_heads, cfg.d_head
+    return {"k": torch.zeros((batch, max_seq, kv, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, max_seq, kv, hd), dtype=dtype,
+                             device=device)}
+
+
+def decode_self_attention(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                          pos: int, cfg: ArchConfig, mixer: str):
+    """One token ``x`` (B, 1, d) at position ``pos`` against the cache: its
+    K/V are written into the cache at ``pos`` (in place, the reference's
+    ``dynamic_update_slice``), then the scores over the whole cache, keys
+    after ``pos`` (and, for local layers, before the window) masked.
+    Returns (output, cache)."""
+    B = x.shape[0]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dev = x.device
+    positions = torch.full((B, 1), int(pos), dtype=torch.int64, device=dev)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    ck, cv = cache["k"], cache["v"]
+    ck[:, pos] = k[:, 0]
+    cv[:, pos] = v[:, 0]
+    Skv = ck.shape[1]
+    g = h // kvh
+    qg = q.reshape(B, 1, kvh, g, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, ck).to(_F32)
+    s = _scale_scores(s, hd)
+    s = softcap(s, cfg.attn.logit_softcap)
+    ki = torch.arange(Skv, device=dev)[None, :]
+    ok = ki <= pos
+    window = cfg.attn.sliding_window if mixer == "attn_local" else None
+    if window is not None:
+        ok = ok & (ki > pos - window)
+    zero = torch.zeros((), dtype=_F32, device=dev)
+    s = s + torch.where(ok, zero, zero - 1e30)[None, None, None]
+    w = torch.softmax(s, dim=-1).to(x.dtype)
+    o = torch.einsum("bkgst,btkd->bskgd", w, cv).reshape(B, 1, h, hd)
+    return _merge_heads(p, o, cfg), cache

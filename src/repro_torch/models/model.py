@@ -1,12 +1,21 @@
 """Model assembly of the port: decoder-only stacks of attention + dense FFN
-blocks (port of the full-sequence path of ``repro.models.model``).
+blocks (port of ``repro.models.model``'s full-sequence and serving paths).
 
 Parameters are nested dicts of tensors with the reference's tree paths:
 per pattern position the block parameters are stacked with a leading
 ``layers`` axis (``blocks/pos0/attn/wq`` is (n_repeats, d, h*hd)), so a
 tree exported from the reference as numpy arrays loads one to one
-(``params_from_reference``).  The forward is plain functions; the layer
-loop lives in ``imc.model_analog._forward_unrolled``, as in the reference.
+(``params_from_reference``).  The forward is plain functions; the
+full-sequence layer loop lives in ``imc.model_analog._forward_unrolled``,
+as in the reference.
+
+Serving: ``init_cache`` / ``serve_prefill`` / ``serve_step`` with a
+preallocated KV cache per pattern position, stacked like the parameters
+((n_repeats, B, max_seq, kv, hd)), and one shared position ``pos`` (a
+Python int).  ``serve_step`` writes the cache in place and returns it.
+They cover attention mixers (global and local) with dense or no FFN; Mamba
+state, MoE, cross-attention and frontend embeddings raise
+``NotImplementedError`` (ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -85,6 +94,13 @@ def params_from_reference(tree: Any, device=None) -> Any:
     return torch.from_numpy(np.array(tree)).to(device)
 
 
+def params_to(params, device) -> Any:
+    """The parameter tree with every tensor moved to ``device``."""
+    if torch.is_tensor(params):
+        return params.to(device)
+    return {k: params_to(v, device) for k, v in params.items()}
+
+
 def layer_params(params, rep: int):
     """Block parameters of pattern repeat ``rep`` (the stacked axis)."""
     def take(t):
@@ -99,6 +115,15 @@ def _maybe_post(p, name, y, cfg):
     return y
 
 
+def _ffn_tail(lp, x, cfg: ArchConfig, f: str):
+    """The block's FFN half (pre-norm, dense FFN, post-norm, residual)."""
+    if f != "none":
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        y = ffn_mod.dense_ffn(lp["ffn"], h, cfg)
+        x = x + _maybe_post(lp, "post_ln2", y, cfg)
+    return x
+
+
 def _run_block(p, x, cfg: ArchConfig, mixer: str, ffn: str, positions
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block (train/prefill).  Returns (x, aux_loss)."""
@@ -106,11 +131,7 @@ def _run_block(p, x, cfg: ArchConfig, mixer: str, ffn: str, positions
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     y = attn.self_attention(p["attn"], h, cfg, positions, mixer)
     x = x + _maybe_post(p, "post_ln1", y, cfg)
-    if ffn != "none":
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        y = ffn_mod.dense_ffn(p["ffn"], h, cfg)
-        x = x + _maybe_post(p, "post_ln2", y, cfg)
-    return x, aux
+    return _ffn_tail(p, x, cfg, ffn), aux
 
 
 def _embed(params, cfg: ArchConfig, tokens):
@@ -133,6 +154,110 @@ def _logits(params, cfg: ArchConfig, h):
     w = _unembed_matrix(params, cfg)
     logits = linear(h, w.to(h.dtype), "unembed")
     return softcap(logits.to(_F32), cfg.final_softcap)
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
+def check_serving(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` unless the serving path covers every
+    block of ``cfg`` (attention mixers, dense or no FFN, no encoder, no
+    frontend)."""
+    for mixer, f in cfg.pattern:
+        if not mixer.startswith("attn") or f not in ("dense", "none"):
+            raise NotImplementedError(
+                f"{cfg.name}: serving ({mixer}, {f}) blocks (Mamba state, "
+                f"MoE) is not ported (ROADMAP A9b)")
+    if cfg.n_encoder_layers:
+        raise NotImplementedError(f"{cfg.name}: cross-attention serving is "
+                                  f"not ported (ROADMAP A9b)")
+    if cfg.frontend_positions:
+        raise NotImplementedError(f"{cfg.name}: frontend embeddings are not "
+                                  f"ported (ROADMAP A9b)")
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               device=None) -> Dict[str, Any]:
+    """Zero KV cache per pattern position, (n_repeats, batch, max_seq, kv,
+    hd) in the compute dtype, at position 0."""
+    check_serving(cfg)
+    dt = DTYPES[cfg.compute_dtype]
+    n_rep = cfg.n_pattern_repeats
+    blocks = {}
+    for i in range(len(cfg.pattern)):
+        c = attn.init_kv_cache(cfg, batch, max_seq, dt, device)
+        blocks[f"pos{i}"] = {k: v.new_zeros((n_rep,) + tuple(v.shape))
+                             for k, v in c.items()}
+    return {"pos": 0, "blocks": blocks}
+
+
+def _window(cfg: ArchConfig, mixer: str):
+    return cfg.attn.sliding_window if mixer == "attn_local" else None
+
+
+def serve_prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+                  max_seq: int):
+    """Full forward over ``batch["tokens"]`` (B, S); returns the last
+    position's logits (B, 1, vocab) and the cache filled to ``pos`` = S.
+    Above ``attention.CHUNK_THRESHOLD`` tokens the attention is chunked."""
+    check_serving(cfg)
+    if batch.get("frontend_embeds") is not None or "encoder_frames" in batch:
+        raise NotImplementedError("frontend / encoder inputs are not ported "
+                                  "(ROADMAP A9b)")
+    tokens = batch["tokens"]
+    x = _embed(params, cfg, tokens)
+    B, S, _ = x.shape
+    if S > max_seq:
+        raise ValueError(f"prefill of {S} tokens exceeds max_seq {max_seq}")
+    positions = torch.broadcast_to(
+        torch.arange(S, device=x.device)[None], (B, S))
+    cache = init_cache(cfg, B, max_seq, x.device)
+    fn = (attn.chunked_attention if S > attn.CHUNK_THRESHOLD
+          else attn.full_attention)
+    for rep in range(cfg.n_pattern_repeats):
+        lps = layer_params(params, rep)
+        for i, (mixer, f) in enumerate(cfg.pattern):
+            lp = lps[f"pos{i}"]
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = attn._project_qkv(lp["attn"], h, cfg, positions)
+            o = fn(q, k, v, cfg, causal=True, window=_window(cfg, mixer))
+            y = attn._merge_heads(lp["attn"], o, cfg)
+            c = cache["blocks"][f"pos{i}"]
+            c["k"][rep, :, :S] = k
+            c["v"][rep, :, :S] = v
+            x = x + _maybe_post(lp, "post_ln1", y, cfg)
+            x = _ffn_tail(lp, x, cfg, f)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, cfg, x[:, -1:, :])
+    cache["pos"] = S
+    return logits, cache
+
+
+def serve_step(params, cfg: ArchConfig, cache: Dict[str, Any],
+               tokens: torch.Tensor):
+    """One decode step: ``tokens`` (B, 1) at the cache's position.  Returns
+    (logits (B, 1, vocab), cache), the cache written in place and its
+    position advanced by one."""
+    pos = int(cache["pos"])
+    max_seq = cache["blocks"]["pos0"]["k"].shape[2]
+    if pos >= max_seq:
+        raise ValueError(f"decode at position {pos} past max_seq {max_seq}")
+    x = _embed(params, cfg, tokens)
+    for rep in range(cfg.n_pattern_repeats):
+        lps = layer_params(params, rep)
+        for i, (mixer, f) in enumerate(cfg.pattern):
+            lp = lps[f"pos{i}"]
+            c = cache["blocks"][f"pos{i}"]
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            y, _ = attn.decode_self_attention(
+                lp["attn"], h, {"k": c["k"][rep], "v": c["v"][rep]}, pos,
+                cfg, mixer)
+            x = x + _maybe_post(lp, "post_ln1", y, cfg)
+            x = _ffn_tail(lp, x, cfg, f)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, cfg, x)
+    cache["pos"] = pos + 1
+    return logits, cache
 
 
 def n_params(params) -> int:

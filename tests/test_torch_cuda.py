@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card, and
+the entry points of chip_smoke.py phase 8 at small sizes.
 
 A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU and
 nvcc; without them they skip.  On a machine with both:
@@ -606,3 +607,126 @@ def test_variation_campaign_every_layout_equals_c1t1(dev, kind):
     assert list(llg_rk4_kernel.launch_layouts) == [
         (cells, p.n_sublattices, *rule, 1)]
     assert (out[7, :grid.cells] < n).any()
+
+
+# --- the write-path / fault-cost remainder and serving (chip_smoke phase 8) ---
+
+@pytest.fixture
+def fresh_writes(tmp_path, monkeypatch):
+    """No campaign or write-characterization cache carried between tests."""
+    from repro_torch.circuit import subarray
+    from repro_torch.imc import write_margin, write_path
+
+    monkeypatch.setenv("REPRO_TORCH_CAMPAIGN_CACHE", str(tmp_path))
+    fns = (write_margin.wer_margined_pulse, write_path.measured_write_timings,
+           write_path.nominal_pulse, subarray._characterize_write)
+    for f in fns:
+        f.cache_clear()
+    yield
+    for f in fns:
+        f.cache_clear()
+
+
+def test_write_error_rate_is_one_launch(dev, fresh_writes):
+    """One LLG launch; the scan baseline on the card agrees within 3
+    binomial standard errors of the difference at the pooled rate."""
+    from repro_torch.core import montecarlo
+
+    before = llg_rk4_kernel.launches
+    w_k = montecarlo.write_error_rate(AFMTJ_PARAMS, 1.0, 200e-12,
+                                      n_samples=1024, device=dev)
+    assert llg_rk4_kernel.launches == before + 1
+    w_s = montecarlo.write_error_rate_scan(AFMTJ_PARAMS, 1.0, 200e-12,
+                                           n_samples=256, device=dev)
+    assert llg_rk4_kernel.launches == before + 1
+    p = (w_k * 1024 + w_s * 256) / 1280
+    assert abs(w_k - w_s) <= 3 * math.sqrt(p * (1 - p) * (1 / 1024 + 1 / 256))
+
+
+def test_program_bits_and_write_surface_on_card(dev, fresh_writes):
+    import numpy as np
+
+    from repro_torch.imc import write_path
+
+    target = np.random.default_rng(8).integers(0, 2, (32, 32))
+    pol = write_path.WritePolicy(pulse=120e-12, max_attempts=3,
+                                 use_cache=False)
+    before = llg_rk4_kernel.launches
+    res, err = write_path.program_bits(target, "afmtj", pol, device=dev)
+    assert llg_rk4_kernel.launches - before == res.rounds > 0
+    assert res.attempts.size == target.sum()
+    assert err.sum() == (~res.success).sum() and not err[target == 0].any()
+    before = llg_rk4_kernel.launches
+    surf = write_path.write_surface("afmtj", voltages=(0.8, 1.2),
+                                    temperatures=(300.0, 375.0), n_cells=64,
+                                    policy=pol, device=dev)
+    assert surf.residual_ber.shape == (2, 2, 1)
+    assert llg_rk4_kernel.launches - before >= 4
+
+
+def test_fault_costs_on_card(dev, fresh_writes):
+    from repro_torch.imc import evaluate
+    from repro_torch.imc.faults import REPAIR_SPARE, FaultSpec
+    from repro_torch.imc.mapping import fault_cost_factors
+
+    spec = FaultSpec.at_rate(1e-3)
+    nominal = evaluate.evaluate_system("afmtj", device=dev)
+    for repair in (None, REPAIR_SPARE):
+        y, ovh, stretch = fault_cost_factors(spec, repair)
+        res = evaluate.evaluate_system("afmtj", faults=spec, repair=repair,
+                                       device=dev)
+        for name, r in res.items():
+            assert r.t_imc == pytest.approx(nominal[name].t_imc * stretch,
+                                            rel=1e-12)
+            assert r.e_imc == pytest.approx(nominal[name].e_imc * ovh,
+                                            rel=1e-12)
+            assert r.array_yield == y
+
+
+def test_write_energy_accuracy_surface_launches_b1_and_b3(dev, no_tf32,
+                                                          fresh_writes):
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.imc import mapping, write_path
+
+    analog_mac.reset_counts(bitline_mac_kernel)
+    before = llg_rk4_kernel.launches
+    pts = mapping.write_energy_accuracy_surface(
+        get_arch("qwen2-0.5b"), policy=write_path.WritePolicy(
+            pulse=150e-12, use_cache=False),
+        wer_targets=(3e-1, 1e-2), n_cells=128, cap_k=128, cap_n=256,
+        batch=4, device=dev)
+    assert bitline_mac_kernel.launches == 2
+    assert llg_rk4_kernel.launches > before
+    a, b = pts[3e-1], pts[1e-2]
+    assert a.attempts_budget <= b.attempts_budget
+    assert a.report.nmse >= b.report.nmse and b.e_write_bit >= a.e_write_bit
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-2b"])
+def test_serving_on_card_matches_cpu(dev, no_tf32, arch):
+    """The same parameters on the card and the CPU: prefill and decode
+    logits within 1e-4 (float32, TF32 off), decode == forward at the
+    reference's 2e-2."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.engine import init_serve_params
+    from repro_torch.models import model as M
+
+    cfg = smoke_config(arch)
+    params = init_serve_params(cfg, 0, "cpu")
+    on_card = M.params_to(params, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 17),
+                         generator=torch.Generator().manual_seed(7))
+    out = {}
+    for d, p in (("cpu", params), (dev, on_card)):
+        t = toks.to(d)
+        with torch.no_grad():
+            lp, cache = M.serve_prefill(p, cfg, {"tokens": t[:, :16]},
+                                        max_seq=20)
+            ld, cache = M.serve_step(p, cfg, cache, t[:, 16:])
+            lf, _ = M.serve_prefill(p, cfg, {"tokens": t}, max_seq=20)
+        out[str(d)] = (lp.cpu(), ld.cpu(), lf.cpu())
+        assert cache["pos"] == 17
+        torch.testing.assert_close(ld[:, 0].cpu(), lf[:, -1].cpu(),
+                                   atol=2e-2, rtol=2e-2)
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=0)

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``, nor the port's example) imports JAX or the JAX package,
+``chip_smoke.py``, nor the port's examples) imports JAX or the JAX package,
 every module imports with JAX blocked, and no entry point carries on on the
 CPU unless asked."""
 import ast
@@ -33,7 +33,8 @@ def _sources():
 
 TWINS = ("torch_model_accuracy_study", "torch_quickstart",
          "torch_imc_case_study", "torch_variation_study",
-         "torch_retention_study")
+         "torch_retention_study", "torch_write_path_study",
+         "torch_fault_study", "torch_serving_study")
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
@@ -65,7 +66,11 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.kernels.xnor_gemm",
               "repro_torch.kernels.fake_analog",
               "repro_torch.kernels.llg_write", "repro_torch.configs.olmoe_1b_7b",
-              "repro_torch.configs.jamba_1_5_large_398b"):
+              "repro_torch.configs.jamba_1_5_large_398b",
+              "repro_torch.imc.cost_model", "repro_torch.launch.traffic",
+              "repro_torch.launch.scheduler", "repro_torch.launch.report",
+              "repro_torch.launch.simulate", "repro_torch.launch.engine",
+              "repro_torch.launch.serve"):
         assert m in mods, m
     code = (
         "import sys\n"
@@ -152,6 +157,44 @@ def _entry_points():
         "build_hierarchy": lambda: build_hierarchy("afmtj"),
         "evaluate_system": lambda: evaluate_system("afmtj"),
         **_analog_entry_points(),
+        **_remainder_entry_points(),
+    }
+
+
+def _remainder_entry_points():
+    import numpy as np
+
+    from repro_torch.configs.registry import get_arch, smoke_config
+    from repro_torch.core import montecarlo
+    from repro_torch.core.params import AFMTJ_PARAMS
+    from repro_torch.imc import cost_model, mapping, write_path
+    from repro_torch.launch import engine, serve, simulate
+
+    pol = write_path.WritePolicy(pulse=1e-10, use_cache=False)
+    return {
+        "write_error_rate": lambda: montecarlo.write_error_rate(
+            AFMTJ_PARAMS, 1.0, 1e-11, n_samples=4),
+        "write_error_rate_scan": lambda: montecarlo.write_error_rate_scan(
+            AFMTJ_PARAMS, 1.0, 1e-12, n_samples=4),
+        "program_bits": lambda: write_path.program_bits(
+            np.ones((2, 2), int), policy=pol),
+        "write_surface": lambda: write_path.write_surface(
+            "afmtj", n_cells=4, policy=pol),
+        "write_energy_accuracy_surface": lambda:
+            mapping.write_energy_accuracy_surface(
+                get_arch("qwen2-0.5b"), policy=pol, n_cells=4),
+        "imc_cost_model": lambda: cost_model.imc_cost_model("afmtj"),
+        "device_cost_model": lambda: cost_model.device_cost_model("mtj"),
+        "fault_slo_curve": lambda: simulate.fault_slo_curve(n_requests=8),
+        "ServeEngine": lambda: engine.ServeEngine(
+            smoke_config("qwen2-0.5b"), 4, 2, 1),
+        "serve.main": lambda: serve.main(["--requests", "1"]),
+        "torch_write_path_study.run": lambda: _twin(
+            "torch_write_path_study").run(quick=True),
+        "torch_fault_study.run": lambda: _twin(
+            "torch_fault_study").run(quick=True),
+        "torch_serving_study.run": lambda: _twin(
+            "torch_serving_study").run(quick=True),
     }
 
 
@@ -210,7 +253,12 @@ def _analog_entry_points():
     "program_weights", "binary_matmul", "mvm_accuracy", "fake_analog_matmul",
     "program_weights_cached", "analog_model_logits", "model_accuracy",
     "model_accuracy_surface", "model_degradation_curves",
-    "decode_projection_accuracy", "accuracy_surface"]))
+    "decode_projection_accuracy", "accuracy_surface",
+    "write_error_rate", "write_error_rate_scan", "program_bits",
+    "write_surface", "write_energy_accuracy_surface", "imc_cost_model",
+    "device_cost_model", "fault_slo_curve", "ServeEngine", "serve.main",
+    "torch_write_path_study.run", "torch_fault_study.run",
+    "torch_serving_study.run"]))
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default is valid")
