@@ -183,10 +183,41 @@ Phases (any failure raises and the script exits non-zero):
    ``PHASE8_TRUNC_STEPS`` steps, and timed C1T1 against the rule's layout
    in turns under ``NO_SLOWER``.
 
+9. The other model families (MoE, Mamba-2, the hybrid, encoder-decoder
+   and the vision frontend), through the same entry points:
+   a. B3, B4 and B5 against their plain versions at the new launch shapes
+      (M = 128; (K, N) = (2,048, 2,048) olmoe-1b-7b's attention
+      projections, (2,048, 50,304) its unembed, (1,536, 50,280)
+      mamba2-780m's tied unembed), at phase 5a's bounds, each timed eager
+      and graph-replayed beside ``torch.matmul`` and its bound;
+   b. ``analog_path`` (phase 5b's path) on olmoe-1b-7b (16 layers, d_model
+      2,048, 64 experts top-8, vocab 50,304) and mamba2-780m (48 layers,
+      d_model 1,536, vocab 50,280) at full width in the default compute
+      dtype: the fake surface at adc 4/6/8, device mode twice, fake adc 8,
+      bnn; fails unless fake and device logits are bit-identical, the
+      second device call too, KL falls with adc bits, logits are finite,
+      and each kernel launched 65 (olmoe: 16 x 4 attention projections +
+      the unembed) or 1 (mamba2: the tied unembed) times per forward — the
+      reference routes only ``models.common.linear`` sites, so MoE routers
+      and experts and the Mamba projections stay exact; then each kernel's
+      time per forward from 9a's shapes;
+   c. serving at full width in float32 (``serve_full_width``, phase 8's
+      loop: 5 requests, 2 slots, prompt 16, max_new 4) on olmoe-1b-7b,
+      mamba2-780m, seamless-m4t-large-v2 (24 + 24 layers, 1,024 encoder
+      frames per request) and qwen2-vl-2b (256 vision positions, M-RoPE):
+      the serve contract, AFMTJ ahead of MTJ at p99 TPOT where the arch
+      keeps a KV cache, decode == forward at B 2 x S 16, and the first
+      prefill against the CPU on a depth-cut copy of the same parameters
+      (``CUT_REPEATS`` pattern repeats and encoder layers at full width,
+      ``SERVE_CPU_ATOL``); jamba-1.5-large-398b and
+      llama4-maverick-400b-a17b (398e9 parameters, not on one card) at
+      their smoke configs: decode == forward, prefill + 3 decode steps
+      finite.  Each model is freed before the next.
+
 Each kernel's launch counter is set to 0 before its main-path run (phases
 2-3 for the LLG kernel, with its launches by layout, 2 and 6 for the
-write kernel, 5b for the analog kernels, both in phase 7, and the LLG and
-bit-line MAC kernels in phase 8) and read after it (the
+write kernel, 5b and 9b (per arch) for the analog kernels, both in phase
+7, and the LLG and bit-line MAC kernels in phase 8) and read after it (the
 analog wrappers count their mainloop launches under ``launches``, and the
 split-K reduce pass a split call adds under ``reduce_launches``); the
 second-to-last line is the per-kernel JSON record and the last line
@@ -1258,8 +1289,8 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
 
 
 def per_forward(shapes: list, path: dict) -> dict:
-    """Milliseconds per qwen2-0.5b forward: each shape's time (phase 5a)
-    times the launches per forward at that shape counted in phase 5b,
+    """Milliseconds per forward: each shape's time (phase 5a or 9a) times
+    the launches per forward at that shape counted on the path (5b, 9b),
     summed, for every kernel variant and its ``torch.matmul`` yardstick,
     eager and device."""
     keys = {"bitline_mac adc 8": ("bitline_mac", "ms"),
@@ -1279,7 +1310,7 @@ def per_forward(shapes: list, path: dict) -> dict:
     for name, n_fwd in FORWARDS.items():
         counts = path["launch_shapes"][name]
         if set(counts) - set(timed):
-            raise AssertionError(f"{name} launched at shapes phase 5a did not "
+            raise AssertionError(f"{name} launched at shapes the hold did not "
                                  f"time: {sorted(set(counts) - set(timed))}")
         if any(c % n_fwd for c in counts.values()):
             raise AssertionError(f"{name}: launches {dict(counts)} are not "
@@ -1328,18 +1359,23 @@ def phase5_hold(torch, dev) -> list:
             for k, n, what in QWEN_SHAPES]
 
 
-def log_per_forward(fwd: dict) -> None:
-    log("  kernel time per forward (launches per shape counted in phase 5b; "
-        "eager, device):")
+def log_per_forward(fwd: dict, phase: str = "5b") -> None:
+    log(f"  kernel time per forward (launches per shape counted in phase "
+        f"{phase}; eager, device):")
     for label, ms in fwd["eager"].items():
         log(f"    {label}: {ms:.3f} ms, {fwd['device'][label]:.3f} ms")
     log(f"    launches per forward by shape: {fwd['launches_per_forward']}")
 
 
-def phase5_path(torch, dev) -> dict:
-    """The model-level analog accuracy path at full width, through its
-    entry points; the analog kernels' counters are set to 0 just before and
-    read just after."""
+def analog_path(torch, dev, arch: str, linears: int) -> dict:
+    """The model-level analog accuracy path of ``arch`` at full width
+    (batch 2 x seq 64, random weights from seed 0) through its entry points:
+    the fake surface (adc 4 / 6 / 8, TMR 5.0), the device mode twice
+    through the programming cache, fake adc 8 and bnn.  The analog
+    kernels' counters are set to 0 just before and read just after; fails
+    unless fake vs device gives KL < 1e-4 with token match 1.0, the second
+    device call is bit-identical, KL falls with adc bits, and every kernel
+    launched ``linears`` times per forward."""
     from repro_torch.imc import model_analog as ma
     from repro_torch.imc.analog_pipeline import AnalogConfig
     from repro_torch.kernels import analog_mac
@@ -1348,9 +1384,6 @@ def phase5_path(torch, dev) -> dict:
     from repro_torch.kernels.xnor_gemm import xnor_gemm_kernel
     from repro_torch.models.model import n_params as count_params
 
-    log("phase 5b: qwen2-0.5b at full width (24 layers, d_model 896, vocab "
-        "151,936, random weights from seed 0), batch 2 x seq 64, every "
-        "linear through the analog MVM")
     kernels = {"bitline_mac": bitline_mac_kernel,
                "xnor_gemm": xnor_gemm_kernel,
                "fake_analog": fake_analog_kernel}
@@ -1369,8 +1402,8 @@ def phase5_path(torch, dev) -> dict:
 
     kw = dict(batch=2, seq_len=64, smoke=False)
     surf = timed("fake surface (3 forwards)", lambda: ma.model_accuracy_surface(
-        "qwen2-0.5b", mode="fake", adc_bits=(4, 6, 8), tmrs=(5.0,), **kw))
-    state = timed("setup", lambda: ma._setup("qwen2-0.5b", False, 2, 64, 0))
+        arch, mode="fake", adc_bits=(4, 6, 8), tmrs=(5.0,), **kw))
+    state = timed("setup", lambda: ma._setup(arch, False, 2, 64, 0))
     cfg, params, tokens, ref_logits = state
     want = (2, 64, cfg.vocab)
     if tuple(ref_logits.shape) != want or not torch.isfinite(ref_logits).all():
@@ -1384,7 +1417,7 @@ def phase5_path(torch, dev) -> dict:
     y_fake = timed("fake adc 8", lambda: ma.analog_model_logits(
         params, cfg, tokens, acfg, mode="fake"))
     bnn = timed("bnn", lambda: ma.model_accuracy(
-        "qwen2-0.5b", AnalogConfig(), mode="bnn", _setup_state=state, **kw))
+        arch, AnalogConfig(), mode="bnn", _setup_state=state, **kw))
     launches = {name: kern.launches for name, kern in kernels.items()}
     reduce_launches = {name: kern.reduce_launches
                        for name, kern in kernels.items()}
@@ -1407,9 +1440,10 @@ def phase5_path(torch, dev) -> dict:
         f"{bnn.ppl_analog:.1f}")
     kl_fd, match_fd, _, _ = ma.logit_metrics(y_dev, y_fake, tokens)
     same = bool(torch.equal(y_dev, y_dev2))
+    fake_is_device = bool(torch.equal(y_dev, y_fake))
     log(f"  fake vs device (adc 8): KL {kl_fd:.3e}, token match {match_fd}, "
-        f"bit-identical {bool(torch.equal(y_dev, y_fake))}; second device "
-        f"call bit-identical: {same}")
+        f"bit-identical {fake_is_device}; second device call bit-identical: "
+        f"{same}")
     for name, sec in walls.items():
         log(f"  wall {name}: {sec:.2f} s")
     log(f"  launches: {launches}; of which split K (+1 reduce-pass launch "
@@ -1425,15 +1459,23 @@ def phase5_path(torch, dev) -> dict:
                              "not bit-identical")
     if not kl[4] > kl[6] > kl[8]:
         raise AssertionError(f"KL not monotone in adc bits: {kl}")
-    expect = {name: n * LINEARS_PER_FORWARD for name, n in FORWARDS.items()}
+    expect = {name: n * linears for name, n in FORWARDS.items()}
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     return dict(launches=launches, reduce_launches=reduce_launches,
                 launch_shapes=launch_shapes, walls=walls, kl=kl, kl_device=kl_d,
                 match_device=match_d, kl_bnn=bnn.kl, kl_fake_vs_device=kl_fd,
-                cache_bytes=cache_bytes,
+                fake_is_device=fake_is_device, cache_bytes=cache_bytes,
                 ppl=dict(exact=ppl_r, device=ppl_d, bnn=bnn.ppl_analog),
                 n_params=n_params)
+
+
+def phase5_path(torch, dev) -> dict:
+    """Phase 5b: qwen2-0.5b through ``analog_path``."""
+    log("phase 5b: qwen2-0.5b at full width (24 layers, d_model 896, vocab "
+        "151,936, random weights from seed 0), batch 2 x seq 64, every "
+        "linear through the analog MVM")
+    return analog_path(torch, dev, "qwen2-0.5b", LINEARS_PER_FORWARD)
 
 
 # --- phase 6: the example twins --------------------------------------------
@@ -2328,20 +2370,95 @@ def phase8_writes() -> dict:
     return out
 
 
-def phase8_serving(torch) -> dict:
-    """qwen2-0.5b at full width (24 layers, d 896, vocab 151,936, float32)
-    through the serving loop: 5 requests, 2 slots, prompt 16, max_new 4.
-    Holds the serve contract of ``tests/test_system.py``, AFMTJ ahead of
-    MTJ at p99 TPOT, decode == forward, and the first prefill's logits
-    against the same parameters on the CPU."""
+def hold_serve_contract(stats: dict) -> None:
+    """The serve contract of ``tests/test_system.py`` for 5 requests
+    through 2 slots at max_new 4."""
+    ok = (stats["served"] == 5 and stats["prefill_tokens"] == 5
+          and stats["decode_tokens"] == 15 and stats["prefills"] >= 3
+          and [len(c) for c in stats["completions"]] == [4] * 5)
+    for tech in ("afmtj", "mtj", "cpu"):
+        r = stats["device"][tech]
+        ok = ok and r["sim_time_s"] > 0 and r["energy_j"] > 0 and \
+            r["ttft_p99_s"] >= r["ttft_p50_s"] > 0
+    if not ok:
+        raise AssertionError(f"serve contract: {stats}")
+
+
+def serve_extra(torch, cfg, batch: int, rng, device) -> dict:
+    """The frontend inputs of ``cfg`` for ``batch`` sequences (encoder
+    frames or vision patches, unit normals from ``rng``), as the engine
+    draws them; {} for text-only archs."""
+    import numpy as np
+
+    if not cfg.frontend_positions:
+        return {}
+    key = "encoder_frames" if cfg.n_encoder_layers else "frontend_embeds"
+    return {key: torch.from_numpy(rng.standard_normal(
+        (batch, cfg.frontend_positions, cfg.d_model)).astype(np.float32)).to(
+            device)}
+
+
+def decode_vs_forward(torch, params, cfg, S: int = 16) -> float:
+    """Max |d| between prefill(S) + one decode step and prefill(S + 1)'s last
+    position, B = 2, held to ``DECODE_BOUND`` absolute + relative."""
+    import numpy as np
+
+    from repro_torch.models import model as M
+
+    rng = np.random.default_rng(7)
+    dev = params["embed"].device
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, S + 1))).to(dev)
+    extra = serve_extra(torch, cfg, 2, rng, dev)
+    max_seq = S + 4 + (cfg.frontend_positions if "frontend_embeds" in extra
+                       else 0)
+    with torch.no_grad():
+        _, cache = M.serve_prefill(params, cfg, dict(extra, tokens=toks[:, :S]),
+                                   max_seq=max_seq)
+        dec, _ = M.serve_step(params, cfg, cache, toks[:, S:S + 1])
+        full, _ = M.serve_prefill(params, cfg, dict(extra, tokens=toks),
+                                  max_seq=max_seq)
+    gap = (dec[:, 0] - full[:, -1]).abs()
+    if not bool((gap <= DECODE_BOUND + DECODE_BOUND
+                 * full[:, -1].abs()).all()):
+        raise AssertionError(f"{cfg.name}: decode vs forward "
+                             f"{gap.max().item()}")
+    return gap.max().item()
+
+
+def depth_cut(params, cfg, n_repeats: int):
+    """(params, cfg) of the first ``n_repeats`` pattern repeats and as many
+    encoder layers, at full width (views of the stacked tensors)."""
+    def head(tree, n):
+        return (tree[:n] if not isinstance(tree, dict)
+                else {k: head(v, n) for k, v in tree.items()})
+
+    n_enc = min(cfg.n_encoder_layers, n_repeats)
+    cut = dataclasses.replace(cfg, n_layers=n_repeats * len(cfg.pattern),
+                              n_encoder_layers=n_enc)
+    out = dict(params, blocks=head(params["blocks"], n_repeats))
+    if n_enc:
+        out["encoder"] = dict(params["encoder"],
+                              blocks=head(params["encoder"]["blocks"], n_enc))
+    return out, cut
+
+
+def serve_full_width(torch, arch: str, cut_repeats=None) -> dict:
+    """``arch`` at full width in float32 through the serving loop
+    (``launch.serve.serve`` with ``ServeEngine``): 5 requests, 2 slots,
+    prompt 16, max_new 4.  Holds the serve contract, AFMTJ ahead of MTJ at
+    p99 TPOT where the arch keeps a KV cache, decode == forward, and the
+    first prefill's logits against the same parameters on the CPU (cut to
+    ``cut_repeats`` pattern repeats and encoder layers, if given, on both
+    sides)."""
     import numpy as np
 
     from repro_torch.configs.registry import get_arch
+    from repro_torch.imc.cost_model import per_token_counts
     from repro_torch.launch.engine import ServeEngine
     from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_arch("qwen2-0.5b"), compute_dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch), compute_dtype="float32")
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, 16, 4, 2, seed=0)
     torch.cuda.synchronize()
@@ -2351,65 +2468,57 @@ def phase8_serving(torch) -> dict:
 
     def keep_first(histories, frontends):
         out = prefill(histories, frontends)
-        first.setdefault("histories", [np.array(h) for h in histories])
-        first.setdefault("logits", engine.last_logits.clone())
+        if not first:
+            first.update(histories=[np.array(h) for h in histories],
+                         frontends=list(frontends),
+                         logits=engine.last_logits.clone())
         return out
 
     engine.prefill = keep_first
     stats = serve(cfg, engine, 5, 2, 16, 4, log=lambda m: log("  " + m))
     wall = stats["elapsed_s"]
     dev = stats["device"]
-    log(f"  serving qwen2-0.5b full width on the card: {wall:.3f} s for "
+    log(f"  serving {arch} full width on the card: {wall:.3f} s for "
         f"{stats['generated_tokens']} tokens "
         f"({stats['generated_tokens'] / wall:.1f} tokens/s; parameters "
         f"{t_init:.2f} s); completions {stats['completions']}")
-    ok = (stats["served"] == 5 and stats["prefill_tokens"] == 5
-          and stats["decode_tokens"] == 15 and stats["prefills"] >= 3
-          and [len(c) for c in stats["completions"]] == [4] * 5)
-    for tech in ("afmtj", "mtj", "cpu"):
-        r = dev[tech]
-        ok = ok and r["sim_time_s"] > 0 and r["energy_j"] > 0 and             r["ttft_p99_s"] >= r["ttft_p50_s"] > 0
-    if not ok:
-        raise AssertionError(f"serve contract: {stats}")
-    if not dev["afmtj"]["tpot_p99_s"] < dev["mtj"]["tpot_p99_s"]:
+    hold_serve_contract(stats)
+    has_kv = per_token_counts(cfg).kv_elems > 0
+    log(f"  p99 TPOT afmtj {dev['afmtj']['tpot_p99_s']:.4e} s, mtj "
+        f"{dev['mtj']['tpot_p99_s']:.4e} s (simulated clocks"
+        f"{'' if has_kv else '; no KV cache'})")
+    if has_kv and not dev["afmtj"]["tpot_p99_s"] < dev["mtj"]["tpot_p99_s"]:
         raise AssertionError("AFMTJ does not beat MTJ at p99 TPOT")
-    log(f"  p99 TPOT afmtj {dev['afmtj']['tpot_p99_s']:.4e} s < mtj "
-        f"{dev['mtj']['tpot_p99_s']:.4e} s (simulated clocks)")
 
-    # decode == forward at full width
-    S = 16
-    toks = torch.from_numpy(np.random.default_rng(7).integers(
-        0, cfg.vocab, (2, S + 1))).cuda()
+    decode_gap = decode_vs_forward(torch, engine.params, cfg)
+    params, ccfg = engine.params, cfg
+    card = first["logits"]
+    if cut_repeats:
+        params, ccfg = depth_cut(params, cfg, cut_repeats)
+        with torch.no_grad():
+            card, _ = M.serve_prefill(params, ccfg, engine.batch_inputs(
+                first["histories"], first["frontends"]), engine.max_seq)
+    t0 = time.perf_counter()
     with torch.no_grad():
-        _, cache = M.serve_prefill(engine.params, cfg, {"tokens": toks[:, :S]},
-                                   max_seq=S + 4)
-        dec, _ = M.serve_step(engine.params, cfg, cache, toks[:, S:S + 1])
-        full, _ = M.serve_prefill(engine.params, cfg, {"tokens": toks},
-                                  max_seq=S + 4)
-    gap = (dec[:, 0] - full[:, -1]).abs()
-    decode_gap = gap.max().item()
-    if not bool((gap <= DECODE_BOUND + DECODE_BOUND
-                 * full[:, -1].abs()).all()):
-        raise AssertionError(f"decode vs forward: {decode_gap}")
-    # the first prefill against the same parameters on the CPU
-    hist = first["histories"]
-    window = engine.window
-    tok = np.zeros((2, window), np.int64)
-    for s, h in enumerate(hist):
-        tok[s, window - h.size:] = h[-window:]
-    params_cpu = M.params_to(engine.params, "cpu")
-    with torch.no_grad():
-        cpu_logits, _ = M.serve_prefill(params_cpu, cfg, {
-            "tokens": torch.from_numpy(tok)}, max_seq=engine.max_seq)
-    cpu_gap = (first["logits"].cpu() - cpu_logits).abs().max().item()
+        cpu_logits, _ = M.serve_prefill(
+            M.params_to(params, "cpu"), ccfg, engine.batch_inputs(
+                first["histories"], first["frontends"], "cpu"),
+            max_seq=engine.max_seq)
+    t_cpu = time.perf_counter() - t0
+    cpu_gap = (card.cpu() - cpu_logits).abs().max().item()
+    depth = (f"{ccfg.n_layers} layers" + (f" + {ccfg.n_encoder_layers} "
+                                          f"encoder" if ccfg.n_encoder_layers
+                                          else ""))
     log(f"  decode vs forward at full width: max |d| {decode_gap:.3e} "
-        f"(bound {DECODE_BOUND} abs + rel); first prefill card vs CPU: "
-        f"max |d| {cpu_gap:.3e} (bound {SERVE_CPU_ATOL})")
+        f"(bound {DECODE_BOUND} abs + rel); first prefill card vs CPU "
+        f"({depth}, {t_cpu:.1f} s on the CPU): max |d| {cpu_gap:.3e} (bound "
+        f"{SERVE_CPU_ATOL})")
     if not cpu_gap <= SERVE_CPU_ATOL:
         raise AssertionError(f"prefill card vs CPU: {cpu_gap}")
     return dict(wall_s=wall, tokens=stats["generated_tokens"],
                 tokens_per_s=stats["generated_tokens"] / wall,
                 init_s=t_init, decode_gap=decode_gap, cpu_gap=cpu_gap,
+                cpu_check_layers=ccfg.n_layers,
                 tpot_p99={t: dev[t]["tpot_p99_s"] for t in dev},
                 ttft_p99={t: dev[t]["ttft_p99_s"] for t in dev},
                 prefills=stats["prefills"])
@@ -2468,7 +2577,10 @@ def phase8_path(torch, rec) -> dict:
     out["writes"] = timed("program_bits + write_surface + write/accuracy",
                           phase8_writes)
     rec.tag = None
-    out["serving"] = timed("serving", lambda: phase8_serving(torch))
+    # qwen2-0.5b (24 layers, d 896, vocab 151,936); the CPU check at full
+    # depth
+    out["serving"] = timed("serving", lambda: serve_full_width(
+        torch, "qwen2-0.5b"))
     out["twins"] = timed("twins", phase8_twins)
     launches = llg_rk4.llg_rk4_kernel.launches
     b3 = bitline_mac_kernel.launches
@@ -2548,6 +2660,108 @@ def phase8(torch, dev, census) -> dict:
     total = time.perf_counter() - t0
     log(f"  phase 8 total: {total:.1f} s")
     return dict(path, shapes=shapes, total_s=total)
+
+
+# --- phase 9: the other model families ---------------------------------------
+
+# the new analog launch shapes, M = 128 (batch 2 x seq 64): olmoe-1b-7b's
+# attention projections and unembed, mamba2-780m's tied unembed
+FAMILY_SHAPES = [(2048, 2048, "olmoe wq/wk/wv/wo"),
+                 (2048, 50304, "olmoe unembed"),
+                 (1536, 50280, "mamba2 unembed (embed.T)")]
+# linears through the analog MVM per forward: the reference routes only
+# ``models.common.linear`` sites, so MoE routers and experts and the Mamba
+# projections stay exact (16 x 4 attention projections + the unembed; the
+# tied unembed alone)
+FAMILY_LINEARS = {"olmoe-1b-7b": 16 * 4 + 1, "mamba2-780m": 1}
+SERVE_FAMILIES = ("olmoe-1b-7b", "mamba2-780m", "seamless-m4t-large-v2",
+                  "qwen2-vl-2b")
+# 398e9 parameters each: not on one card (ROADMAP A12); smoke configs
+SMOKE_FAMILIES = ("jamba-1.5-large-398b", "llama4-maverick-400b-a17b")
+# pattern repeats (and encoder layers) of the CPU check's depth-cut copy
+CUT_REPEATS = 2
+
+
+def phase9_hold(torch, dev) -> list:
+    log("phase 9a: analog kernels vs plain versions at the new families' "
+        "launch shapes (timed)")
+    t0 = time.perf_counter()
+    shapes = [hold_analog_at_shape(torch, dev, QWEN_M, k, n, what,
+                                   timed=True)
+              for k, n, what in FAMILY_SHAPES]
+    log(f"  phase 9a: {time.perf_counter() - t0:.1f} s")
+    return shapes
+
+
+def smoke_family(torch, dev, arch: str) -> dict:
+    """``arch``'s smoke config on the card (random weights, seed 0):
+    decode == forward, then a prefill of 2 x 16 tokens and 3 greedy decode
+    steps, every logit finite."""
+    import numpy as np
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.engine import init_serve_params
+    from repro_torch.models import model as M
+
+    cfg = smoke_config(arch)
+    params = init_serve_params(cfg, 0, dev)
+    gap = decode_vs_forward(torch, params, cfg)
+    rng = np.random.default_rng(11)
+    extra = serve_extra(torch, cfg, 2, rng, dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))).to(dev)
+    with torch.no_grad():
+        logits, cache = M.serve_prefill(params, cfg, dict(extra, tokens=toks),
+                                        max_seq=16 + cfg.frontend_positions
+                                        + 8)
+        finite = bool(torch.isfinite(logits).all())
+        for _ in range(3):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            logits, cache = M.serve_step(params, cfg, cache, tok)
+            finite = finite and bool(torch.isfinite(logits).all())
+    log(f"  {arch} (smoke config, {M.n_params(params):,} parameters) on the "
+        f"card: prefill + 3 decode steps finite {finite}, position "
+        f"{cache['pos']}; decode vs forward max |d| {gap:.3e}")
+    if not finite:
+        raise AssertionError(f"{arch}: non-finite logits")
+    return dict(decode_gap=gap, pos=cache["pos"])
+
+
+def phase9(torch, dev, shapes: list) -> dict:
+    """Phase 9: the analog accuracy path on olmoe-1b-7b and mamba2-780m at
+    full width (``analog_path``: counters set to 0 before and read after
+    each arch), then serving olmoe, mamba2, seamless and qwen2-vl at full
+    width and jamba / llama4 at their smoke configs; each model freed
+    before the next."""
+    t0 = time.perf_counter()
+    paths, serving, walls = {}, {}, {}
+    for arch, linears in FAMILY_LINEARS.items():
+        log(f"phase 9b: {arch} at full width (random weights from seed 0), "
+            f"batch 2 x seq 64, {linears} linears per forward through the "
+            f"analog MVM")
+        t = time.perf_counter()
+        path = analog_path(torch, dev, arch, linears)
+        walls[f"analog {arch}"] = time.perf_counter() - t
+        if not path["fake_is_device"]:
+            raise AssertionError(f"{arch}: fake and device logits differ")
+        path["per_forward"] = per_forward(shapes, path)
+        log_per_forward(path["per_forward"], "9b")
+        paths[arch] = path
+        torch.cuda.empty_cache()
+    for arch in SERVE_FAMILIES:
+        log(f"phase 9c: serving {arch} at full width (float32)")
+        t = time.perf_counter()
+        serving[arch] = serve_full_width(torch, arch, CUT_REPEATS)
+        walls[f"serve {arch}"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    for arch in SMOKE_FAMILIES:
+        t = time.perf_counter()
+        serving[arch] = smoke_family(torch, dev, arch)
+        walls[f"smoke {arch}"] = time.perf_counter() - t
+    total = time.perf_counter() - t0
+    for name, sec in walls.items():
+        log(f"  phase 9 {name}: {sec:.2f} s")
+    log(f"  phase 9 (b + c) total: {total:.1f} s")
+    return dict(paths=paths, serving=serving, walls=walls, total_s=total)
 
 
 def main() -> int:
@@ -2630,6 +2844,8 @@ def main() -> int:
     twins = phase6(torch)
     corners = phase7(torch, dev, census, write_census)
     remainder = phase8(torch, dev, census)
+    family_shapes = phase9_hold(torch, dev)
+    families = phase9(torch, dev, family_shapes)
 
     record = {"kernels": [{
         "name": "llg_rk4",
@@ -2687,6 +2903,21 @@ def main() -> int:
     sources = {"bitline_mac": "analog_mac.cu", "xnor_gemm": "xnor_gemm.cu",
                "fake_analog": "fake_analog.cu"}
     widest = analog_shapes[-1]
+    phase9_counts = {name: {} for name in replaces}
+    for fam in families["paths"].values():
+        for name, counts in fam["launch_shapes"].items():
+            for shape, c in counts.items():
+                phase9_counts[name][shape] = \
+                    phase9_counts[name].get(shape, 0) + c
+
+    def shape_rows(name, shapes, counts):
+        return [dict(x[name], shape=x["shape"], what=x["what"],
+                     launches=counts.get(tuple(x["shape"]), 0),
+                     host_us=x["host_us"][name],
+                     library_host_us=(None if x[name]["library_ms"] is None
+                                      else x["host_us"]["torch.matmul"]))
+                for x in shapes]
+
     for name, line in replaces.items():
         r = widest[name]
         record["kernels"].append({
@@ -2710,12 +2941,13 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "library_ms_device": r["library_ms_device"],
             "shape": "128 x 896 @ 896 x 151936 (unembed)",
-            "main_path_shapes": [dict(
-                x[name], shape=x["shape"], what=x["what"],
-                host_us=x["host_us"][name],
-                library_host_us=(None if r["library_ms"] is None else
-                                 x["host_us"]["torch.matmul"]))
-                for x in analog_shapes],
+            # phase 5's shapes with phase 5b's launches, then phase 9's
+            # with phase 9b's (olmoe-1b-7b and mamba2-780m)
+            "main_path_shapes": (
+                shape_rows(name, analog_shapes, path["launch_shapes"][name])
+                + shape_rows(name, family_shapes, phase9_counts[name])),
+            "launches_phase9": {arch: fam["launches"][name] for arch, fam
+                                in families["paths"].items()},
         })
     w = write[2]                # the quickstart's voltages, AFMTJ
     record["kernels"].append({
@@ -2754,6 +2986,13 @@ def main() -> int:
                             if k not in ("launches", "reduce_launches",
                                          "launch_shapes")}
     record["analog_ms_per_forward"] = per_fwd
+    record["phase9"] = {
+        "analog": {arch: {k: v for k, v in fam.items()
+                          if k not in ("launches", "reduce_launches",
+                                       "launch_shapes")}
+                   for arch, fam in families["paths"].items()},
+        "serving": families["serving"], "walls": families["walls"],
+        "total_s": families["total_s"]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps(record), flush=True)

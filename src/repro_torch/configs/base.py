@@ -2,9 +2,7 @@
 
 The same fields, defaults and parameter counts as the reference, so a
 config built here and one built there describe the same model.
-``MoEConfig`` and ``SSMConfig`` are plain data: the port's model stack
-runs dense attention blocks only (the other blocks wait for ROADMAP A9b),
-but ``param_count`` / ``active_param_count`` count every arch, as the
+``param_count`` / ``active_param_count`` count every arch, as the
 closed-form decode mapping (``imc.mapping``) needs.
 """
 from __future__ import annotations

@@ -3,10 +3,8 @@ configs and the training microbatch counts (port of
 ``repro.configs.registry``).
 
 All ten archs of the reference are registered, as plain data: their
-parameter counts drive the closed-form decode mapping (``imc.mapping``).
-The port's model stack runs dense attention decoders only; building a
-model from an arch with MoE, Mamba or encoder-decoder blocks raises
-``NotImplementedError`` (those blocks wait for ROADMAP A9b).
+parameter counts drive the closed-form decode mapping (``imc.mapping``),
+and ``models.model`` builds every one of them.
 """
 from __future__ import annotations
 

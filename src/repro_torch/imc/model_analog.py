@@ -2,10 +2,15 @@
 AFMTJ differential-conductance MVM (port of ``repro.imc.model_analog``,
 DESIGN.md §12).
 
-Every linear of the decoder forward (``models.model``) is routed through
-the analog MVM by the ``models.common.linear`` hook, and the logits are
-scored against the exact forward: KL, greedy token match, perplexity.
-Three execution modes per linear:
+Every ``models.common.linear`` site of a decoder-only forward
+(``models.model``) is routed through the analog MVM by the linear hook,
+and the logits are scored against the exact forward: KL, greedy token
+match, perplexity.  The sites are the reference's: attention projections,
+dense FFNs (a shared expert among them) and the unembed.  MoE routers and
+experts and the Mamba projections are plain products in the reference and
+stay exact here too (olmoe-1b-7b routes 16 x 4 + 1 = 65 linears per
+forward, mamba2-780m only its tied unembed).  Encoder-decoder archs have
+no analog path, as in the reference.  Three execution modes per linear:
 
   * ``fake``   — the fused fake-analog kernel (``kernels.fake_analog``):
                  programming replayed inside the product, the operand
@@ -368,7 +373,8 @@ def program_weights_cached(
 # unrolled model forward + interception hooks
 # ---------------------------------------------------------------------------
 def _forward_unrolled(params, cfg: ArchConfig, tokens: torch.Tensor):
-    """Full-sequence logits, layer by layer (decoder-only)."""
+    """Full-sequence logits, layer by layer, for every decoder-only arch
+    (attention or Mamba mixers, dense, MoE or no FFN)."""
     assert cfg.n_encoder_layers == 0, "analog routing covers decoder-only"
     x = model_mod._embed(params, cfg, tokens)
     B, S, _ = x.shape

@@ -3,7 +3,8 @@
 
 ``ServeEngine`` owns the model side of serving (DESIGN.md §11): the
 parameters, the fixed-window prefill and single-token decode of
-``models.model`` and their KV cache, on one device.  Each call returns the
+``models.model`` and their cache, and per-request frontend conditioning,
+on one device.  Each call returns the
 batch's next tokens (numpy, greedy argmax) plus the step's op counts
 (``imc.cost_model.StepCounts``), so the serve loop runs on a simulated
 device clock instead of wall time.
@@ -53,7 +54,6 @@ class ServeEngine:
                  seed: int = 0, device=None, params=None):
         from repro_torch.models import model as M
 
-        M.check_serving(cfg)
         self._model = M
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -61,35 +61,57 @@ class ServeEngine:
         self.window = prompt_len + max_new
         self.max_seq = self.window + cfg.frontend_positions + max_new + 2
         self.token_counts: TokenCounts = per_token_counts(cfg)
+        self.frontend_key = ("encoder_frames" if cfg.n_encoder_layers else
+                             "frontend_embeds" if cfg.frontend_positions
+                             else None)
         self.params = (init_serve_params(cfg, seed, self.device)
                        if params is None else M.params_to(params, self.device))
         self._cache = None
         self.last_logits: Optional[torch.Tensor] = None
 
     def draw_frontend(self, rng: np.random.Generator):
-        """One request's frontend conditioning: none on the ported
-        (text-only) archs."""
-        return None
+        """One request's frontend conditioning (vision patches or encoder
+        frames, (frontend_positions, d_model) float32 normals from ``rng``),
+        drawn once at admission and kept for the request's lifetime; None
+        on text-only archs."""
+        if self.frontend_key is None:
+            return None
+        return rng.standard_normal(
+            (self.cfg.frontend_positions, self.cfg.d_model)).astype(np.float32)
 
     def _next_tokens(self, logits: torch.Tensor) -> np.ndarray:
         self.last_logits = logits
         return torch.argmax(logits[:, -1], dim=-1).cpu().numpy().astype(
             np.int32)
 
-    def prefill(self, histories: Sequence[np.ndarray],
-                frontends: Sequence[Any]) -> Tuple[np.ndarray, StepCounts]:
-        """Re-prefill the whole batch from right-aligned histories; returns
-        (next token per slot, op counts over the live histories)."""
+    def batch_inputs(self, histories: Sequence[np.ndarray],
+                     frontends: Sequence[Any], device=None) -> dict:
+        """The prefill's inputs on ``device`` (default: the engine's): the
+        histories right-aligned into the window with ``PAD_ID``, and the
+        slots' frontends stacked under ``frontend_key`` (zeros for a slot
+        without one)."""
+        dev = self.device if device is None else device
         hist = np.full((self.batch, self.window), PAD_ID, np.int64)
         for s, h in enumerate(histories):
             h = np.asarray(h)[-self.window:]
             if h.size:
                 hist[s, self.window - h.size:] = h     # right-aligned
-        tokens = torch.from_numpy(hist).to(self.device)
+        batch = {"tokens": torch.from_numpy(hist).to(dev)}
+        if self.frontend_key:
+            zeros = np.zeros((self.cfg.frontend_positions, self.cfg.d_model),
+                             np.float32)
+            batch[self.frontend_key] = torch.from_numpy(np.stack([
+                zeros if f is None else f for f in frontends])).to(dev)
+        return batch
+
+    def prefill(self, histories: Sequence[np.ndarray],
+                frontends: Sequence[Any]) -> Tuple[np.ndarray, StepCounts]:
+        """Re-prefill the whole batch from right-aligned histories; returns
+        (next token per slot, op counts over the live histories)."""
+        batch = self.batch_inputs(histories, frontends)
         with torch.no_grad():
             logits, self._cache = self._model.serve_prefill(
-                self.params, self.cfg, {"tokens": tokens},
-                max_seq=self.max_seq)
+                self.params, self.cfg, batch, max_seq=self.max_seq)
         tok = self._next_tokens(logits)
         counts = prefill_step_counts(
             self.token_counts,

@@ -1,14 +1,14 @@
-"""Grouped-query self-attention (port of ``repro.models.attention``): QKV
+"""Grouped-query attention (port of ``repro.models.attention``): QKV
 projections (with bias, per-head q/k RMSNorm, RoPE), the
 materialized-score path and the chunked online-softmax path over a full
-sequence, single-token decode against a preallocated KV cache, and the
-output projection.
+sequence, bidirectional encoder attention, decoder cross-attention over
+precomputed encoder K/V, single-token decode against a preallocated KV
+cache, and the output projection.
 
 The arithmetic mirrors the reference's jnp step by step (einsums, float32
 scores, additive -1e30 mask, softmax cast back to the compute dtype), so
 the port compares with it operation by operation; it deliberately does
-not call a fused attention operator.  Cross and encoder attention, like
-the port's other unported blocks, wait for ROADMAP A9b.
+not call a fused attention operator.
 """
 from __future__ import annotations
 
@@ -163,6 +163,31 @@ def self_attention(p, x, cfg: ArchConfig, positions, mixer: str):
     fn = chunked_attention if S > CHUNK_THRESHOLD else full_attention
     o = fn(q, k, v, cfg, causal=True, window=window)
     return _merge_heads(p, o, cfg)
+
+
+def encoder_attention(p, x, cfg: ArchConfig, positions):
+    """Bidirectional (unmasked) self-attention of the encoder stack."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    o = full_attention(q, k, v, cfg, causal=False, window=None)
+    return _merge_heads(p, o, cfg)
+
+
+def cross_attention(p, x, mem_k, mem_v, cfg: ArchConfig):
+    """Decoder cross-attention over precomputed encoder K/V (no RoPE)."""
+    B, S, _ = x.shape
+    h, hd = cfg.n_heads, cfg.d_head
+    q = linear(x, p["wq"].to(x.dtype), "wq").reshape(B, S, h, hd)
+    o = full_attention(q, mem_k, mem_v, cfg, causal=False, window=None)
+    return _merge_heads(p, o, cfg)
+
+
+def project_memory_kv(p, mem, cfg: ArchConfig):
+    """Cross-attention K/V (B, F, kv, hd) of the encoder output ``mem``."""
+    B, S, _ = mem.shape
+    kv, hd = cfg.n_kv_heads, cfg.d_head
+    k = linear(mem, p["wk"].to(mem.dtype), "wk").reshape(B, S, kv, hd)
+    v = linear(mem, p["wv"].to(mem.dtype), "wv").reshape(B, S, kv, hd)
+    return k, v
 
 
 # --------------------------------------------------------------------------

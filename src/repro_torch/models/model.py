@@ -1,21 +1,27 @@
-"""Model assembly of the port: decoder-only stacks of attention + dense FFN
-blocks (port of ``repro.models.model``'s full-sequence and serving paths).
+"""Model assembly of the port: the decoder stacks of all ten archs (port of
+``repro.models.model``'s full-sequence and serving paths).
+
+Blocks: attention (global or local) or Mamba-2 mixer, dense, MoE or no
+FFN, optional post-norms, and, for encoder-decoder archs, a
+cross-attention sub-block over the encoder's output.  Frontend embeddings
+(vision patches) are concatenated before the tokens; encoder frames go
+through the encoder stack.
 
 Parameters are nested dicts of tensors with the reference's tree paths:
 per pattern position the block parameters are stacked with a leading
-``layers`` axis (``blocks/pos0/attn/wq`` is (n_repeats, d, h*hd)), so a
-tree exported from the reference as numpy arrays loads one to one
+``layers`` axis (``blocks/pos0/attn/wq`` is (n_repeats, d, h*hd)), and the
+encoder's under ``encoder/blocks`` (n_encoder_layers, ...), so a tree
+exported from the reference as numpy arrays loads one to one
 (``params_from_reference``).  The forward is plain functions; the
 full-sequence layer loop lives in ``imc.model_analog._forward_unrolled``,
 as in the reference.
 
-Serving: ``init_cache`` / ``serve_prefill`` / ``serve_step`` with a
-preallocated KV cache per pattern position, stacked like the parameters
-((n_repeats, B, max_seq, kv, hd)), and one shared position ``pos`` (a
-Python int).  ``serve_step`` writes the cache in place and returns it.
-They cover attention mixers (global and local) with dense or no FFN; Mamba
-state, MoE, cross-attention and frontend embeddings raise
-``NotImplementedError`` (ROADMAP A9b).
+Serving: ``init_cache`` / ``serve_prefill`` / ``serve_step``.  The cache
+holds per pattern position a preallocated KV cache ((n_repeats, B,
+max_seq, kv, hd)) or the Mamba conv / ssm state ((n_repeats, B, K-1, C) /
+(n_repeats, B, H, P, N)), the cross K/V per pattern position for
+encoder-decoder archs, one shared position ``pos`` (a Python int) and
+``max_seq``.  ``serve_step`` writes the cache in place and returns it.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (DTYPES, ParamSpec,
                                        init_params as _init, linear, rms_norm,
                                        softcap)
@@ -34,18 +41,25 @@ from repro_torch.models.common import (DTYPES, ParamSpec,
 _F32 = torch.float32
 
 
-def _block_specs(cfg: ArchConfig, mixer: str, ffn: str) -> Dict[str, Any]:
-    if not mixer.startswith("attn") or ffn not in ("dense", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: ({mixer}, {ffn}) blocks are not ported (ROADMAP "
-            f"A9b); the port runs attention + dense FFN decoders")
-    sp: Dict[str, Any] = {"ln1": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
-                          "attn": attn.attn_specs(cfg)}
+def _block_specs(cfg: ArchConfig, mixer: str, ffn: str,
+                 cross: bool) -> Dict[str, Any]:
+    sp: Dict[str, Any] = {"ln1": ParamSpec((cfg.d_model,), ("embed",),
+                                           "zeros")}
+    if mixer.startswith("attn"):
+        sp["attn"] = attn.attn_specs(cfg)
+    elif mixer == "mamba":
+        sp["mamba"] = ssm_mod.mamba_specs(cfg)
+    else:
+        raise ValueError(mixer)
     if cfg.post_norms:
         sp["post_ln1"] = ParamSpec((cfg.d_model,), ("embed",), "zeros")
+    if cross:
+        sp["ln_cross"] = ParamSpec((cfg.d_model,), ("embed",), "zeros")
+        sp["cross"] = attn.attn_specs(cfg, cross=True)
     if ffn != "none":
         sp["ln2"] = ParamSpec((cfg.d_model,), ("embed",), "zeros")
-        sp["ffn"] = ffn_mod.dense_ffn_specs(cfg)
+        sp["ffn"] = (ffn_mod.moe_specs(cfg) if ffn == "moe"
+                     else ffn_mod.dense_ffn_specs(cfg))
         if cfg.post_norms:
             sp["post_ln2"] = ParamSpec((cfg.d_model,), ("embed",), "zeros")
     return sp
@@ -60,9 +74,6 @@ def _stack_specs(specs: Any, n: int) -> Any:
 
 
 def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
-    if cfg.n_encoder_layers:
-        raise NotImplementedError("encoder-decoder stacks are not ported "
-                                  "(ROADMAP A9b)")
     n_rep = cfg.n_pattern_repeats
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"),
@@ -72,9 +83,15 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((cfg.d_model, cfg.vocab),
                                      ("embed", "vocab"))
+    cross = cfg.n_encoder_layers > 0
     specs["blocks"] = {
-        f"pos{i}": _stack_specs(_block_specs(cfg, mixer, f), n_rep)
+        f"pos{i}": _stack_specs(_block_specs(cfg, mixer, f, cross), n_rep)
         for i, (mixer, f) in enumerate(cfg.pattern)}
+    if cross:
+        specs["encoder"] = {
+            "blocks": _stack_specs(_block_specs(cfg, "attn", "dense", False),
+                                   cfg.n_encoder_layers),
+            "final_norm": ParamSpec((cfg.d_model,), ("embed",), "zeros")}
     return specs
 
 
@@ -88,10 +105,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device):
 def params_from_reference(tree: Any, device=None) -> Any:
     """The reference's parameter tree (nested dicts of numpy arrays, e.g.
     ``jax.tree_util.tree_map(np.asarray, params)``) as the port's tree of
-    tensors on ``device``, dtypes kept."""
+    tensors on ``device``, dtypes kept (bfloat16 leaves through float32)."""
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(device)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def params_to(params, device) -> Any:
@@ -101,12 +122,14 @@ def params_to(params, device) -> Any:
     return {k: params_to(v, device) for k, v in params.items()}
 
 
+def _take(tree, i: int):
+    return (tree[i] if torch.is_tensor(tree)
+            else {k: _take(v, i) for k, v in tree.items()})
+
+
 def layer_params(params, rep: int):
     """Block parameters of pattern repeat ``rep`` (the stacked axis)."""
-    def take(t):
-        return t[rep] if torch.is_tensor(t) else {k: take(v) for k, v in t.items()}
-
-    return take(params["blocks"])
+    return _take(params["blocks"], rep)
 
 
 def _maybe_post(p, name, y, cfg):
@@ -116,32 +139,55 @@ def _maybe_post(p, name, y, cfg):
 
 
 def _ffn_tail(lp, x, cfg: ArchConfig, f: str):
-    """The block's FFN half (pre-norm, dense FFN, post-norm, residual)."""
-    if f != "none":
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    """The block's FFN half (pre-norm, dense or MoE FFN, post-norm,
+    residual).  Returns (x, aux loss or None)."""
+    if f == "none":
+        return x, None
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    aux = None
+    if f == "moe":
+        y, aux = ffn_mod.moe_ffn(lp["ffn"], h, cfg)
+    else:
         y = ffn_mod.dense_ffn(lp["ffn"], h, cfg)
-        x = x + _maybe_post(lp, "post_ln2", y, cfg)
-    return x
+    return x + _maybe_post(lp, "post_ln2", y, cfg), aux
 
 
-def _run_block(p, x, cfg: ArchConfig, mixer: str, ffn: str, positions
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _cross_tail(lp, x, cfg: ArchConfig, mem_kv):
+    """The cross-attention sub-block over the encoder's K/V (if any)."""
+    if mem_kv is None:
+        return x
+    h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+    return x + attn.cross_attention(lp["cross"], h, mem_kv[0], mem_kv[1],
+                                    cfg)
+
+
+def _run_block(p, x, cfg: ArchConfig, mixer: str, ffn: str, positions,
+               mem_kv=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block (train/prefill).  Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=_F32, device=x.device)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    y = attn.self_attention(p["attn"], h, cfg, positions, mixer)
+    if mixer.startswith("attn"):
+        y = attn.self_attention(p["attn"], h, cfg, positions, mixer)
+    else:
+        y = ssm_mod.mamba_forward(p["mamba"], h, cfg)
     x = x + _maybe_post(p, "post_ln1", y, cfg)
-    return _ffn_tail(p, x, cfg, ffn), aux
+    x = _cross_tail(p, x, cfg, mem_kv)
+    x, a = _ffn_tail(p, x, cfg, ffn)
+    return x, aux if a is None else aux + a
 
 
-def _embed(params, cfg: ArchConfig, tokens):
+def _embed(params, cfg: ArchConfig, tokens, frontend_embeds=None):
     """Token embedding in the compute dtype, scaled by sqrt(d_model) — the
     scale as a float32 square root rounded to the compute dtype, as the
-    reference's weakly typed ``jnp.sqrt(float(d))``."""
+    reference's weakly typed ``jnp.sqrt(float(d))`` — with
+    ``frontend_embeds`` (B, F, d) concatenated before the tokens."""
     dt = DTYPES[cfg.compute_dtype]
     e = params["embed"]
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=_F32)).to(dt)
-    return e[tokens].to(dt) * scale.to(e.device)
+    x = e[tokens].to(dt) * scale.to(e.device)
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(dt), x], dim=1)
+    return x
 
 
 def _unembed_matrix(params, cfg: ArchConfig):
@@ -156,39 +202,71 @@ def _logits(params, cfg: ArchConfig, h):
     return softcap(logits.to(_F32), cfg.final_softcap)
 
 
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.broadcast_to(torch.arange(S, device=device)[None], (B, S))
+
+
+# --------------------------------------------------------------------------
+# encoder (enc-dec archs)
+# --------------------------------------------------------------------------
+def _encode(params, cfg: ArchConfig, frame_embeds):
+    """The encoder stack over ``frame_embeds`` (B, F, d): bidirectional
+    attention + dense FFN per layer, then the final norm."""
+    x = frame_embeds.to(DTYPES[cfg.compute_dtype])
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    enc = params["encoder"]
+    for li in range(cfg.n_encoder_layers):
+        lp = _take(enc["blocks"], li)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attn.encoder_attention(lp["attn"], h, cfg, positions)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + ffn_mod.dense_ffn(lp["ffn"], h, cfg)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _cross_kv(params, cfg: ArchConfig, enc_out):
+    """Per pattern position, the cross K/V of every repeat, stacked:
+    ((n_repeats, B, F, kv, hd), same)."""
+    out = {}
+    for i in range(len(cfg.pattern)):
+        blk = params["blocks"][f"pos{i}"]["cross"]
+        kv = [attn.project_memory_kv({"wk": blk["wk"][r], "wv": blk["wv"][r]},
+                                     enc_out, cfg)
+              for r in range(cfg.n_pattern_repeats)]
+        out[f"pos{i}"] = (torch.stack([k for k, _ in kv]),
+                          torch.stack([v for _, v in kv]))
+    return out
+
+
 # --------------------------------------------------------------------------
 # serving
 # --------------------------------------------------------------------------
-def check_serving(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless the serving path covers every
-    block of ``cfg`` (attention mixers, dense or no FFN, no encoder, no
-    frontend)."""
-    for mixer, f in cfg.pattern:
-        if not mixer.startswith("attn") or f not in ("dense", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: serving ({mixer}, {f}) blocks (Mamba state, "
-                f"MoE) is not ported (ROADMAP A9b)")
-    if cfg.n_encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: cross-attention serving is "
-                                  f"not ported (ROADMAP A9b)")
-    if cfg.frontend_positions:
-        raise NotImplementedError(f"{cfg.name}: frontend embeddings are not "
-                                  f"ported (ROADMAP A9b)")
-
-
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device=None) -> Dict[str, Any]:
-    """Zero KV cache per pattern position, (n_repeats, batch, max_seq, kv,
-    hd) in the compute dtype, at position 0."""
-    check_serving(cfg)
+    """Zero decode cache at position 0: per pattern position the KV cache
+    (attention, compute dtype) or the Mamba conv (compute dtype) and ssm
+    (float32) state, stacked over the repeats; the cross K/V of
+    ``frontend_positions`` rows for encoder-decoder archs."""
     dt = DTYPES[cfg.compute_dtype]
     n_rep = cfg.n_pattern_repeats
     blocks = {}
-    for i in range(len(cfg.pattern)):
-        c = attn.init_kv_cache(cfg, batch, max_seq, dt, device)
+    for i, (mixer, _) in enumerate(cfg.pattern):
+        if mixer.startswith("attn"):
+            c = attn.init_kv_cache(cfg, batch, max_seq, dt, device)
+        else:
+            c = ssm_mod.init_mamba_cache(cfg, batch, dt, device)
         blocks[f"pos{i}"] = {k: v.new_zeros((n_rep,) + tuple(v.shape))
                              for k, v in c.items()}
-    return {"pos": 0, "blocks": blocks}
+    cache: Dict[str, Any] = {"pos": 0, "max_seq": max_seq, "blocks": blocks}
+    if cfg.n_encoder_layers:
+        shape = (n_rep, batch, cfg.frontend_positions, cfg.n_kv_heads,
+                 cfg.d_head)
+        cache["cross"] = {
+            f"pos{i}": (torch.zeros(shape, dtype=dt, device=device),
+                        torch.zeros(shape, dtype=dt, device=device))
+            for i in range(len(cfg.pattern))}
+    return cache
 
 
 def _window(cfg: ArchConfig, mixer: str):
@@ -197,36 +275,48 @@ def _window(cfg: ArchConfig, mixer: str):
 
 def serve_prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                   max_seq: int):
-    """Full forward over ``batch["tokens"]`` (B, S); returns the last
-    position's logits (B, 1, vocab) and the cache filled to ``pos`` = S.
-    Above ``attention.CHUNK_THRESHOLD`` tokens the attention is chunked."""
-    check_serving(cfg)
-    if batch.get("frontend_embeds") is not None or "encoder_frames" in batch:
-        raise NotImplementedError("frontend / encoder inputs are not ported "
-                                  "(ROADMAP A9b)")
-    tokens = batch["tokens"]
-    x = _embed(params, cfg, tokens)
+    """Full forward over ``batch["tokens"]`` (B, S), after
+    ``batch["frontend_embeds"]`` (B, F, d) if given, and with the encoder
+    run once over ``batch["encoder_frames"]`` for encoder-decoder archs.
+    Returns the last position's logits (B, 1, vocab) and the cache filled
+    to ``pos`` = F + S.  Above ``attention.CHUNK_THRESHOLD`` positions the
+    attention is chunked."""
+    x = _embed(params, cfg, batch["tokens"], batch.get("frontend_embeds"))
     B, S, _ = x.shape
     if S > max_seq:
-        raise ValueError(f"prefill of {S} tokens exceeds max_seq {max_seq}")
-    positions = torch.broadcast_to(
-        torch.arange(S, device=x.device)[None], (B, S))
+        raise ValueError(f"prefill of {S} positions exceeds max_seq "
+                         f"{max_seq}")
+    positions = _positions(B, S, x.device)
     cache = init_cache(cfg, B, max_seq, x.device)
+    cross = None
+    if cfg.n_encoder_layers:
+        cross = _cross_kv(params, cfg,
+                          _encode(params, cfg, batch["encoder_frames"]))
+        cache["cross"] = cross
     fn = (attn.chunked_attention if S > attn.CHUNK_THRESHOLD
           else attn.full_attention)
     for rep in range(cfg.n_pattern_repeats):
         lps = layer_params(params, rep)
         for i, (mixer, f) in enumerate(cfg.pattern):
             lp = lps[f"pos{i}"]
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = attn._project_qkv(lp["attn"], h, cfg, positions)
-            o = fn(q, k, v, cfg, causal=True, window=_window(cfg, mixer))
-            y = attn._merge_heads(lp["attn"], o, cfg)
             c = cache["blocks"][f"pos{i}"]
-            c["k"][rep, :, :S] = k
-            c["v"][rep, :, :S] = v
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if mixer.startswith("attn"):
+                q, k, v = attn._project_qkv(lp["attn"], h, cfg, positions)
+                o = fn(q, k, v, cfg, causal=True, window=_window(cfg, mixer))
+                y = attn._merge_heads(lp["attn"], o, cfg)
+                c["k"][rep, :, :S] = k
+                c["v"][rep, :, :S] = v
+            else:
+                y = ssm_mod.mamba_forward(lp["mamba"], h, cfg)
+                st = ssm_mod.mamba_state_after(lp["mamba"], h, cfg)
+                c["conv"][rep] = st["conv"]
+                c["ssm"][rep] = st["ssm"]
             x = x + _maybe_post(lp, "post_ln1", y, cfg)
-            x = _ffn_tail(lp, x, cfg, f)
+            if cross is not None:
+                kc, vc = cross[f"pos{i}"]
+                x = _cross_tail(lp, x, cfg, (kc[rep], vc[rep]))
+            x, _ = _ffn_tail(lp, x, cfg, f)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x[:, -1:, :])
     cache["pos"] = S
@@ -239,21 +329,32 @@ def serve_step(params, cfg: ArchConfig, cache: Dict[str, Any],
     (logits (B, 1, vocab), cache), the cache written in place and its
     position advanced by one."""
     pos = int(cache["pos"])
-    max_seq = cache["blocks"]["pos0"]["k"].shape[2]
+    max_seq = int(cache["max_seq"])
     if pos >= max_seq:
         raise ValueError(f"decode at position {pos} past max_seq {max_seq}")
     x = _embed(params, cfg, tokens)
+    cross = cache.get("cross")
     for rep in range(cfg.n_pattern_repeats):
         lps = layer_params(params, rep)
         for i, (mixer, f) in enumerate(cfg.pattern):
             lp = lps[f"pos{i}"]
             c = cache["blocks"][f"pos{i}"]
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            y, _ = attn.decode_self_attention(
-                lp["attn"], h, {"k": c["k"][rep], "v": c["v"][rep]}, pos,
-                cfg, mixer)
+            if mixer.startswith("attn"):
+                y, _ = attn.decode_self_attention(
+                    lp["attn"], h, {"k": c["k"][rep], "v": c["v"][rep]}, pos,
+                    cfg, mixer)
+            else:
+                y, st = ssm_mod.mamba_decode_step(
+                    lp["mamba"], h, {"conv": c["conv"][rep],
+                                     "ssm": c["ssm"][rep]}, cfg)
+                c["conv"][rep] = st["conv"]
+                c["ssm"][rep] = st["ssm"]
             x = x + _maybe_post(lp, "post_ln1", y, cfg)
-            x = _ffn_tail(lp, x, cfg, f)
+            if cross is not None:
+                kc, vc = cross[f"pos{i}"]
+                x = _cross_tail(lp, x, cfg, (kc[rep], vc[rep]))
+            x, _ = _ffn_tail(lp, x, cfg, f)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x)
     cache["pos"] = pos + 1
@@ -264,3 +365,4 @@ def n_params(params) -> int:
     if torch.is_tensor(params):
         return params.numel()
     return sum(n_params(v) for v in params.values())
+

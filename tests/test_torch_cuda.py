@@ -192,13 +192,16 @@ def no_tf32():
 # the reference tests' odd shapes; split-K edges: K below the unclamped split
 # x BK (1 x 20 x 77), K not a multiple of the stage depth (2 x 100 x 190 on
 # element copies, 2 x 100 x 192 on 16-byte copies), M = 1 with a deep split
-# (1 x 4864 x 896); qwen2-0.5b's five full-width (K, N) at M = 128.  The
-# split shapes also hold the chunk rule: a chunk missed or summed twice
-# would break the XNOR GEMM's exactness.
+# (1 x 4864 x 896); qwen2-0.5b's five full-width (K, N) at M = 128; then
+# olmoe-1b-7b's attention projections and unembed and mamba2-780m's tied
+# unembed (N = 50,280, not a multiple of the 128-wide tile).  The split
+# shapes also hold the chunk rule: a chunk missed or summed twice would
+# break the XNOR GEMM's exactness.
+FAMILY_SHAPES = [(128, 2048, 2048), (128, 2048, 50304), (128, 1536, 50280)]
 SHAPES = [(3, 200, 77), (65, 130, 190), (1, 1, 1), (129, 127, 128),
           (1, 20, 77), (2, 100, 190), (2, 100, 192), (1, 4864, 896),
           (128, 896, 896), (128, 896, 128), (128, 896, 4864),
-          (128, 4864, 896), (128, 896, 151936)]
+          (128, 4864, 896), (128, 896, 151936)] + FAMILY_SHAPES
 
 
 @pytest.mark.parametrize("shape,split", [((128, 4864, 896), True),
@@ -402,7 +405,8 @@ def test_fake_analog_decodes_codes_as_fail_bit(dev, no_tf32, apply_fet):
 
 @pytest.mark.parametrize("shape", [(7, 200, 150), (128, 896, 896),
                                    (128, 896, 128), (128, 896, 4864),
-                                   (128, 4864, 896), (128, 896, 151936)])
+                                   (128, 4864, 896), (128, 896, 151936)]
+                         + FAMILY_SHAPES)
 @pytest.mark.parametrize("flags", FLAGS)
 def test_fake_raw_currents_bit_equal_at_model_shapes(dev, shape, flags):
     """att = 1, decode = 1: the fused kernel's quantized currents equal the
@@ -702,11 +706,15 @@ def test_write_energy_accuracy_surface_launches_b1_and_b3(dev, no_tf32,
     assert a.report.nmse >= b.report.nmse and b.e_write_bit >= a.e_write_bit
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", [
+    "qwen2-0.5b", "gemma2-2b", "olmoe-1b-7b", "mamba2-780m",
+    "jamba-1.5-large-398b", "llama4-maverick-400b-a17b",
+    "seamless-m4t-large-v2", "qwen2-vl-2b"])
 def test_serving_on_card_matches_cpu(dev, no_tf32, arch):
-    """The same parameters on the card and the CPU: prefill and decode
-    logits within 1e-4 (float32, TF32 off), decode == forward at the
-    reference's 2e-2."""
+    """The same parameters on the card and the CPU (smoke configs, with
+    frontend embeddings or encoder frames where the arch has them): prefill
+    and decode logits within 1e-4 (float32, TF32 off), decode == forward at
+    the reference's 2e-2."""
     from repro_torch.configs.registry import smoke_config
     from repro_torch.launch.engine import init_serve_params
     from repro_torch.models import model as M
@@ -714,18 +722,27 @@ def test_serving_on_card_matches_cpu(dev, no_tf32, arch):
     cfg = smoke_config(arch)
     params = init_serve_params(cfg, 0, "cpu")
     on_card = M.params_to(params, dev)
-    toks = torch.randint(0, cfg.vocab, (2, 17),
-                         generator=torch.Generator().manual_seed(7))
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (2, 17), generator=gen)
+    extra, pos0 = {}, 0
+    if cfg.frontend_positions:
+        key = ("encoder_frames" if cfg.n_encoder_layers
+               else "frontend_embeds")
+        extra[key] = torch.randn(2, cfg.frontend_positions, cfg.d_model,
+                                 generator=gen)
+        pos0 = 0 if cfg.n_encoder_layers else cfg.frontend_positions
     out = {}
     for d, p in (("cpu", params), (dev, on_card)):
         t = toks.to(d)
+        ex = {k: v.to(d) for k, v in extra.items()}
         with torch.no_grad():
-            lp, cache = M.serve_prefill(p, cfg, {"tokens": t[:, :16]},
-                                        max_seq=20)
+            lp, cache = M.serve_prefill(p, cfg, dict(ex, tokens=t[:, :16]),
+                                        max_seq=pos0 + 20)
             ld, cache = M.serve_step(p, cfg, cache, t[:, 16:])
-            lf, _ = M.serve_prefill(p, cfg, {"tokens": t}, max_seq=20)
+            lf, _ = M.serve_prefill(p, cfg, dict(ex, tokens=t),
+                                    max_seq=pos0 + 20)
         out[str(d)] = (lp.cpu(), ld.cpu(), lf.cpu())
-        assert cache["pos"] == 17
+        assert cache["pos"] == pos0 + 17
         torch.testing.assert_close(ld[:, 0].cpu(), lf[:, -1].cpu(),
                                    atol=2e-2, rtol=2e-2)
     for a, b in zip(out["cpu"], out[str(dev)]):

@@ -60,7 +60,8 @@ def test_every_module_imports_with_jax_blocked():
     assert len(mods) >= 55, mods
     for m in ("repro_torch.imc.read_path", "repro_torch.circuit.senseamp",
               "repro_torch.configs.registry", "repro_torch.models.model",
-              "repro_torch.models.attention", "repro_torch.imc.faults",
+              "repro_torch.models.attention", "repro_torch.models.ssm",
+              "repro_torch.models.ffn", "repro_torch.imc.faults",
               "repro_torch.imc.analog_pipeline", "repro_torch.imc.mapping",
               "repro_torch.imc.model_analog", "repro_torch.kernels.bitline_mac",
               "repro_torch.kernels.xnor_gemm",
@@ -188,6 +189,8 @@ def _remainder_entry_points():
         "fault_slo_curve": lambda: simulate.fault_slo_curve(n_requests=8),
         "ServeEngine": lambda: engine.ServeEngine(
             smoke_config("qwen2-0.5b"), 4, 2, 1),
+        "ServeEngine_mamba": lambda: engine.ServeEngine(
+            smoke_config("mamba2-780m"), 4, 2, 1),
         "serve.main": lambda: serve.main(["--requests", "1"]),
         "torch_write_path_study.run": lambda: _twin(
             "torch_write_path_study").run(quick=True),
@@ -256,7 +259,8 @@ def _analog_entry_points():
     "decode_projection_accuracy", "accuracy_surface",
     "write_error_rate", "write_error_rate_scan", "program_bits",
     "write_surface", "write_energy_accuracy_surface", "imc_cost_model",
-    "device_cost_model", "fault_slo_curve", "ServeEngine", "serve.main",
+    "device_cost_model", "fault_slo_curve", "ServeEngine",
+    "ServeEngine_mamba", "serve.main",
     "torch_write_path_study.run", "torch_fault_study.run",
     "torch_serving_study.run"]))
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
