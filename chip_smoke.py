@@ -214,6 +214,40 @@ Phases (any failure raises and the script exits non-zero):
       their smoke configs: decode == forward, prefill + 3 decode steps
       finite.  Each model is freed before the next.
 
+10. Training (plain PyTorch, as the reference's is jnp: no kernel on the
+    path), with every kernel wrapper's launch count required unchanged
+    over the phase:
+    a. qwen2-0.5b at its published config (24 layers, d_model 896, vocab
+       151,936, tied embedding; float32 parameters and AdamW state,
+       bfloat16 compute) through ``launch.train.train``: ``TRAIN_STEPS``
+       steps of B 4 x S 4,096 (train_4k's sequence; its global batch of
+       256 cut to 4 for one card) in 2 microbatches, the step counter
+       starting at ``TRAIN_STEP0`` (past the 100-step warmup, so the
+       learning rate is the base rate); fails unless the loss and gradient
+       norm are finite at every step and the last loss is below the first.
+       Prints wall ms per step (host clock, every step ends in a device
+       sync; the first apart), tokens/s, model FLOPs per step and their
+       share of the H100 SXM data sheet's dense bf16 peak, and
+       ``torch.cuda.max_memory_allocated``, beside the card's name and
+       power limit;
+    b. card against CPU on phase 8's ``depth_cut`` (1 repeat, full width
+       and vocabulary, float32 compute, B 2 x S 64, 2 microbatches): one
+       train step from shared parameters at step ``TRAIN_STEP0``, loss,
+       gradient norm and moments within the ``TRAIN_CPU_*`` bounds, the
+       parameters within the shares ``TRAIN_PARAM_SHARE`` /
+       ``TRAIN_STEP_SHARE`` / ``TRAIN_FLIP_SHARE``; the mean of the two
+       microbatches' gradients against the whole batch's
+       (``TRAIN_MICRO_RTOL``);
+    c. checkpoint and resume through ``train`` on the card (1 layer at full
+       width, vocabulary cut to ``RESUME_VOCAB``): 4 steps saved every 2
+       against 2 steps, a stop and a fresh call resuming from the
+       checkpoint; the final checkpoints equal bit for bit under
+       ``torch.use_deterministic_algorithms(True)`` (cuBLAS's
+       ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts);
+    d. one train step of each of the ten archs' smoke configs (float32) on
+       the card and on the CPU: losses within ``FAMILY_LOSS_RTOL`` (jamba
+       ``FAMILY_LOSS_RTOL_JAMBA``), every gradient on the card finite.
+
 Each kernel's launch counter is set to 0 before its main-path run (phases
 2-3 for the LLG kernel, with its launches by layout, 2 and 6 for the
 write kernel, 5b and 9b (per arch) for the analog kernels, both in phase
@@ -2764,7 +2798,392 @@ def phase9(torch, dev, shapes: list) -> dict:
     return dict(paths=paths, serving=serving, walls=walls, total_s=total)
 
 
+# --- phase 10: training -----------------------------------------------------
+
+# train_4k's 4,096-token sequence with the global batch cut from 256 to 4 to
+# fit one card, in TRAIN_MICROBATCHES["qwen2-0.5b"] = 2 microbatches of 2
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 4
+# examples/train_lm.py's rate: 8 steps of 1e-3 at 24 layers moved the
+# loss ~0.25 nats on the CPU at width 256, 3e-3 ~1.1, against ~0.05 of
+# batch-to-batch noise
+TRAIN_LR = 3e-3
+# the step counter starts past wsd_schedule's 100-step warmup (the learning
+# rate is 0 at step 0) and far from its decay: lr = TRAIN_LR at every step
+TRAIN_STEP0 = 100
+TRAIN_TOTAL = 10000
+TRAIN_STEPS = 8
+# NVIDIA's H100 SXM data sheet, dense bf16 tensor-core rate (no sparsity)
+H100_BF16_DENSE_FLOPS = 989e12
+# card against CPU on the depth-cut copy (float32 compute, TF32 off), one
+# step from shared parameters at step TRAIN_STEP0: loss, gradient norm, the
+# moments (max |d| over the leaf's largest |value|), and the updated
+# parameters.  AdamW's first step from zero moments moves an element by
+# ~0.45 lr x sign(g): an element whose gradient is within rounding of 0 may
+# step the other way (|d| ~ 0.9 lr, "flipped"), and where |g| is near eps
+# the step follows g's rounding.  So the parameters are held by shares of
+# elements: more than 1e-6 relative apart (measured 4.4e-2: a step's
+# rounding is 1e-6 of elements much smaller than the step), more than
+# 1e-3 lr apart (6.3e-6) and flipped (6.6e-9) (first chip runs of phase 10)
+TRAIN_CPU_LOSS_RTOL = 1e-5
+TRAIN_CPU_NORM_RTOL = 1e-4
+TRAIN_CPU_MOMENT_RTOL = 5e-4
+TRAIN_PARAM_SHARE = 0.1
+TRAIN_STEP_SHARE = 1e-4
+TRAIN_FLIP_SHARE = 1e-6
+# phase 10c's checkpoints: 1 layer at full width, the vocabulary cut so
+# three saves and two restores move ~0.5 GB each, not 1.8 GB
+RESUME_VOCAB = 32768
+# the mean of the microbatches' gradients against the whole batch's, over
+# each leaf's largest |gradient| (float32, two summation orders)
+TRAIN_MICRO_RTOL = 1e-4
+# every family's smoke config, card against CPU (float32): the loss
+FAMILY_LOSS_RTOL = 1e-4
+FAMILY_LOSS_RTOL_JAMBA = 1e-3          # ROADMAP C14
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 N per token for the matmuls
+    (the tied embedding counts once, as the unembed) plus the attention's
+    12 L (heads x head dim) S per token — the whole S x S score matrix,
+    as the chunked path computes it."""
+    tokens = batch * seq
+    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.d_head * seq * tokens
+    return 6.0 * n_params * tokens + attn
+
+
+def spec_count(cfg) -> int:
+    import numpy as np
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.models import model as M
+
+    return sum(int(np.prod(s.shape)) for s in
+               tree_leaves(M.param_specs(cfg)))
+
+
+def phase10_full_width(torch, smi: str) -> dict:
+    """qwen2-0.5b at its published config through ``train``: TRAIN_STEPS
+    steps from step TRAIN_STEP0 on B TRAIN_BATCH x S TRAIN_SEQ, 2
+    microbatches; finite loss and gradient norm at every step, the last
+    loss below the first."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import TRAIN_MICROBATCHES, get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_arch(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k_b4", "train", TRAIN_SEQ, TRAIN_BATCH,
+                        microbatches=TRAIN_MICROBATCHES[TRAIN_ARCH])
+    ckpt = ROOT / "build" / "smoke-train"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"phase 10a: {TRAIN_ARCH} at full width ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab}), float32 parameters "
+        f"and AdamW state, {cfg.compute_dtype} compute; {TRAIN_STEPS} steps "
+        f"from step {TRAIN_STEP0} of B {TRAIN_BATCH} x S {TRAIN_SEQ} in "
+        f"{shape.microbatches} microbatches, lr {TRAIN_LR}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = train(cfg, shape, AdamWConfig(lr=TRAIN_LR),
+                 TRAIN_STEP0 + TRAIN_STEPS, ckpt, save_every=10 ** 9,
+                 log_every=1, step0=TRAIN_STEP0, total_steps=TRAIN_TOTAL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if [r.step for r in hist] != list(range(TRAIN_STEP0,
+                                            TRAIN_STEP0 + TRAIN_STEPS)):
+        raise AssertionError(f"steps {[r.step for r in hist]}")
+    for r in hist:
+        if not (math.isfinite(r.loss) and math.isfinite(r.grad_norm)):
+            raise AssertionError(f"step {r.step}: loss {r.loss}, grad norm "
+                                 f"{r.grad_norm}")
+        if r.lr != float(torch.tensor(TRAIN_LR, dtype=torch.float32)):
+            raise AssertionError(f"step {r.step}: lr {r.lr}")
+    if not hist[-1].loss < hist[0].loss:
+        raise AssertionError(f"loss did not fall: {hist[0].loss} -> "
+                             f"{hist[-1].loss}")
+    ms = [r.ms for r in hist[1:]]
+    ms_mean = sum(ms) / len(ms)
+    n_params = spec_count(cfg)
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = dict(
+        arch=TRAIN_ARCH, params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        microbatches=shape.microbatches, lr=TRAIN_LR,
+        steps=[r.step for r in hist], losses=[r.loss for r in hist],
+        grad_norms=[r.grad_norm for r in hist],
+        ms_per_step=[r.ms for r in hist], first_step_ms=hist[0].ms,
+        ms_mean=ms_mean, ms_min=min(ms), ms_max=max(ms),
+        tokens_per_s=tokens / (ms_mean / 1e3), model_flops_per_step=flops,
+        bf16_peak_share=flops / (ms_mean / 1e3) / H100_BF16_DENSE_FLOPS,
+        max_memory_allocated=peak, wall_s=wall, card=smi)
+    log(f"  [{smi}] loss {hist[0].loss:.4f} -> {hist[-1].loss:.4f}; grad "
+        f"norm {hist[0].grad_norm:.3f} -> {hist[-1].grad_norm:.3f}")
+    log(f"  [{smi}] wall per step (host clock, each step ends in a device "
+        f"sync): first {hist[0].ms:.1f} ms, then mean {ms_mean:.1f} ms "
+        f"(min {min(ms):.1f}, max {max(ms):.1f}) over {len(ms)} steps")
+    log(f"  [{smi}] {out['tokens_per_s']:.0f} tokens/s; model FLOPs per step "
+        f"{flops:.4e} ({n_params:,} parameters), "
+        f"{100 * out['bf16_peak_share']:.2f}% of the H100 SXM data sheet's "
+        f"dense bf16 peak (989 TFLOP/s)")
+    log(f"  [{smi}] torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; "
+        f"phase 10a wall {wall:.1f} s")
+    return out
+
+
+def _leaf_gap(a, b) -> float:
+    """max |a - b| over max |a| (0 for an all-zero leaf equal to b)."""
+    d = (a.double() - b.double()).abs().max().item()
+    m = a.double().abs().max().item()
+    return d / m if m > 0 else d
+
+
+def phase10_card_vs_cpu(torch, dev) -> dict:
+    """One train step of the depth-cut copy (1 repeat, full width and
+    vocabulary, float32 compute) on the card and on the CPU from the same
+    parameters at step TRAIN_STEP0 (lr > 0); then on the card the mean of
+    two microbatches' gradients against the whole batch's."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import batch_at
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import data_config
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    t0 = time.perf_counter()
+    full = dataclasses.replace(get_arch(TRAIN_ARCH), compute_dtype="float32")
+    params, cfg = depth_cut(
+        M.init_params(full, torch.Generator(dev).manual_seed(0), dev), full,
+        1)
+    params = M.params_to(params, dev)
+    shape = ShapeConfig("cut", "train", 64, 2, microbatches=2)
+    batch = batch_at(data_config(cfg, shape), 0)
+    step = ST.make_train_step(cfg, shape, AdamWConfig(lr=TRAIN_LR),
+                              total_steps=TRAIN_TOTAL)
+    out = {}
+    for where in ("cpu", dev):
+        p = M.params_to(params, where)
+        m, v = adamw_init(p)
+        b = {k: torch.from_numpy(a).to(where) for k, a in batch.items()}
+        p, m, v, _, met = step(p, m, v, TRAIN_STEP0, b)
+        out[str(where)] = (M.params_to(p, "cpu"), M.params_to(m, "cpu"),
+                           M.params_to(v, "cpu"),
+                           {k: float(x) for k, x in met.items()})
+    (pc, mc, vc, metc), (pd, md, vd, metd) = out["cpu"], out[str(dev)]
+    loss_gap = abs(metd["loss"] - metc["loss"]) / abs(metc["loss"])
+    norm_gap = abs(metd["grad_norm"] - metc["grad_norm"]) / metc["grad_norm"]
+    moment_gap = max(_leaf_gap(a, b) for a, b in zip(
+        tree_leaves(mc) + tree_leaves(vc), tree_leaves(md) + tree_leaves(vd)))
+    off = n = flips = 0
+    step_shares = {f: 0 for f in (1e-5, 1e-4, 1e-3, 1e-2)}
+    for a, b in zip(tree_leaves(pc), tree_leaves(pd)):
+        d = (a - b).abs()
+        off += int((d > 1e-6 * a.abs()).sum())
+        flips += int((d > 0.1 * TRAIN_LR).sum())
+        for f in step_shares:
+            step_shares[f] += int((d > f * TRAIN_LR).sum())
+        n += a.numel()
+    log(f"  parameters |d| over lr: share above " + ", ".join(
+        f"{f:g}: {c / n:.2e}" for f, c in step_shares.items()))
+    log(f"phase 10b: card vs CPU, one step of the depth-cut copy (1 layer, "
+        f"full width and vocabulary, float32 compute, B 2 x S 64, 2 "
+        f"microbatches, step {TRAIN_STEP0}, lr {metc['lr']:.3g}): loss "
+        f"{metc['loss']:.6f} / {metd['loss']:.6f} (rel {loss_gap:.2e}), "
+        f"grad norm {metc['grad_norm']:.6f} / {metd['grad_norm']:.6f} (rel "
+        f"{norm_gap:.2e}); moments max |d| {moment_gap:.2e} of the leaf's "
+        f"max; parameters {off} of {n} elements more than 1e-6 relative "
+        f"apart ({off / n:.2e}), {flips} more than 0.1 lr")
+    if not (loss_gap <= TRAIN_CPU_LOSS_RTOL and norm_gap <= TRAIN_CPU_NORM_RTOL
+            and moment_gap <= TRAIN_CPU_MOMENT_RTOL
+            and off <= TRAIN_PARAM_SHARE * n
+            and step_shares[1e-3] <= TRAIN_STEP_SHARE * n
+            and flips <= TRAIN_FLIP_SHARE * n and metc["lr"] > 0):
+        raise AssertionError("card and CPU train steps disagree")
+
+    whole = {k: torch.from_numpy(a).reshape(1, 2, *a.shape[2:]).to(dev)
+             for k, a in batch.items()}
+    split = {k: torch.from_numpy(a).to(dev) for k, a in batch.items()}
+    l1, g1 = ST.make_grad_step(cfg, ShapeConfig("w", "train", 64, 2))(
+        params, whole)
+    l2, g2 = ST.make_grad_step(cfg, shape)(params, split)
+    micro_gap = max(_leaf_gap(a, b) for a, b in zip(tree_leaves(g1),
+                                                    tree_leaves(g2)))
+    micro_loss = abs(l2.item() - l1.item()) / abs(l1.item())
+    log(f"  microbatches: mean of 2 microbatch gradients vs the whole "
+        f"batch's, max |d| {micro_gap:.2e} of the leaf's max; loss rel "
+        f"{micro_loss:.2e}")
+    if not (micro_gap <= TRAIN_MICRO_RTOL
+            and micro_loss <= TRAIN_CPU_LOSS_RTOL):
+        raise AssertionError("microbatch gradients differ from the whole "
+                             "batch's")
+    del params, out, g1, g2
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_gap, grad_norm_rel=norm_gap,
+                moment_gap=moment_gap, params_off=off, params_n=n,
+                params_flipped=flips,
+                step_shares={str(f): c / n for f, c in step_shares.items()},
+                micro_gap=micro_gap,
+                micro_loss_rel=micro_loss, loss=metd["loss"],
+                wall_s=time.perf_counter() - t0)
+
+
+def phase10_resume(torch) -> dict:
+    """``train`` on the card, 1 layer at full width (vocabulary
+    RESUME_VOCAB): 4 steps from step TRAIN_STEP0 saved every 2, against 2
+    steps, a stop, and a fresh call resuming from the checkpoint at step
+    TRAIN_STEP0 + 2; the final checkpoints (parameters, moments, step)
+    equal bit for bit, under ``torch.use_deterministic_algorithms``."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=1,
+                              vocab=RESUME_VOCAB)
+    shape = ShapeConfig("resume", "train", 64, 2, microbatches=2)
+    root = ROOT / "build" / "smoke-train-resume"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(save_every=2, log_every=1, step0=TRAIN_STEP0,
+              total_steps=TRAIN_TOTAL)
+    end = TRAIN_STEP0 + 4
+    log(f"phase 10c: resume on the card ({cfg.name} cut to 1 layer and "
+        f"vocabulary {cfg.vocab}, {cfg.compute_dtype} compute, B 2 x S 64, "
+        f"2 microbatches, deterministic algorithms)")
+    torch.use_deterministic_algorithms(True)
+    try:
+        train(cfg, shape, AdamWConfig(lr=TRAIN_LR), end, root / "a", **kw)
+        train(cfg, shape, AdamWConfig(lr=TRAIN_LR), end - 2, root / "b",
+              **kw)
+        hist = train(cfg, shape, AdamWConfig(lr=TRAIN_LR), end, root / "b",
+                     **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if [r.step for r in hist] != [end - 2, end - 1]:
+        raise AssertionError(f"the resumed run logged {hist}")
+    like_params = tree_map(lambda s: torch.empty(0), M.param_specs(cfg))
+    like = {"params": like_params, "m": like_params, "v": like_params,
+            "step": torch.empty(0)}
+    a = Checkpointer(root / "a" / cfg.name).restore(end, like)
+    b = Checkpointer(root / "b" / cfg.name).restore(end, like)
+    leaves_a, leaves_b = tree_leaves(a), tree_leaves(b)
+    unequal = sum(not torch.equal(x, y) for x, y in zip(leaves_a, leaves_b))
+    gap = max((x.double() - y.double()).abs().max().item()
+              for x, y in zip(leaves_a, leaves_b))
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"  resumed at step {end - 2}, finished at {end}: {unequal} of "
+        f"{len(leaves_a)} leaves differ (max |d| {gap:.3e}); step "
+        f"{int(b['step'])}")
+    if unequal or int(b["step"]) != end:
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+    torch.cuda.empty_cache()
+    return dict(leaves=len(leaves_a), unequal=unequal, max_abs_diff=gap,
+                wall_s=time.perf_counter() - t0)
+
+
+def phase10_families(torch, dev) -> dict:
+    """One train step of every arch's smoke config (float32) on the card
+    and on the CPU from the same parameters: losses within
+    FAMILY_LOSS_RTOL (jamba FAMILY_LOSS_RTOL_JAMBA), every gradient on the
+    card finite."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS, smoke_config
+    from repro_torch.data import batch_at
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import data_config
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    t0 = time.perf_counter()
+    shape = ShapeConfig("smoke", "train", 32, 4, microbatches=2)
+    out = {}
+    for arch in sorted(ARCHS):
+        cfg = smoke_config(arch)
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        batch = batch_at(data_config(cfg, shape), 0)
+        step = ST.make_train_step(cfg, shape, AdamWConfig(lr=TRAIN_LR),
+                                  total_steps=TRAIN_TOTAL)
+        res = {}
+        for where in ("cpu", dev):
+            p = M.params_to(params, where)
+            m, v = adamw_init(p)
+            b = {k: torch.from_numpy(a).to(where) for k, a in batch.items()}
+            *_, met = step(p, m, v, TRAIN_STEP0, b)
+            res[str(where)] = {k: float(x) for k, x in met.items()}
+        b = {k: torch.from_numpy(a).to(dev) for k, a in batch.items()}
+        _, grads = ST.make_grad_step(cfg, shape)(M.params_to(params, dev), b)
+        finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+        c, d = res["cpu"], res[str(dev)]
+        gap = abs(d["loss"] - c["loss"]) / abs(c["loss"])
+        bound = (FAMILY_LOSS_RTOL_JAMBA if arch.startswith("jamba")
+                 else FAMILY_LOSS_RTOL)
+        log(f"phase 10d: {arch} (smoke config): loss {c['loss']:.6f} / "
+            f"{d['loss']:.6f} (rel {gap:.2e}, bound {bound:g}), grad norm "
+            f"{c['grad_norm']:.5f} / {d['grad_norm']:.5f}; every gradient on "
+            f"the card finite: {finite}")
+        if gap > bound or not finite:
+            raise AssertionError(f"{arch}: card vs CPU train step")
+        out[arch] = dict(loss_rel=gap, loss=d["loss"],
+                         grad_norm_cpu=c["grad_norm"],
+                         grad_norm_card=d["grad_norm"])
+    return dict(archs=out, wall_s=time.perf_counter() - t0)
+
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels.bitline_mac import bitline_mac_kernel
+    from repro_torch.kernels.fake_analog import fake_analog_kernel
+    from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
+    from repro_torch.kernels.llg_write import llg_write_kernel
+    from repro_torch.kernels.xnor_gemm import xnor_gemm_kernel
+
+    return {w.__name__: w.launches for w in (
+        llg_rk4_kernel, llg_write_kernel, bitline_mac_kernel,
+        xnor_gemm_kernel, fake_analog_kernel)}
+
+
+def phase10(torch, dev, smi: str) -> dict:
+    """Phase 10, training: full width (10a), card vs CPU and microbatches
+    (10b), resume (10c), every family's backward (10d).  The training path
+    reaches none of the port's kernels (the reference's reaches no Pallas
+    kernel): every wrapper's launch count is the same after the phase as
+    before it."""
+    t0 = time.perf_counter()
+    before = kernel_counts()
+    full = phase10_full_width(torch, smi)
+    card_cpu = phase10_card_vs_cpu(torch, dev)
+    resume = phase10_resume(torch)
+    families = phase10_families(torch, dev)
+    after = kernel_counts()
+    if after != before:
+        raise AssertionError(f"training launched a kernel: {before} -> "
+                             f"{after}")
+    total = time.perf_counter() - t0
+    log(f"  phase 10 total: {total:.1f} s (10a {full['wall_s']:.1f}, 10b "
+        f"{card_cpu['wall_s']:.1f}, 10c {resume['wall_s']:.1f}, 10d "
+        f"{families['wall_s']:.1f}); kernel launches during training: 0")
+    return dict(full_width=full, card_vs_cpu=card_cpu, resume=resume,
+                families=families, total_s=total,
+                kernels_on_path=[],
+                note="the training path (forward_train, its backward, AdamW) "
+                     "is plain PyTorch, as the reference's is jnp with no "
+                     "Pallas kernel; no kernel wrapper launched during "
+                     "phase 10")
+
+
 def main() -> int:
+    # phase 10c's bit-equal resume runs under deterministic algorithms,
+    # whose cuBLAS calls need this workspace setting before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2846,6 +3265,7 @@ def main() -> int:
     remainder = phase8(torch, dev, census)
     family_shapes = phase9_hold(torch, dev)
     families = phase9(torch, dev, family_shapes)
+    training = phase10(torch, dev, smi)
 
     record = {"kernels": [{
         "name": "llg_rk4",
@@ -2993,6 +3413,9 @@ def main() -> int:
                    for arch, fam in families["paths"].items()},
         "serving": families["serving"], "walls": families["walls"],
         "total_s": families["total_s"]}
+    # phase 10: no kernel is on the training path (kernels_on_path is
+    # empty); every kernel above keeps its own main-path launches
+    record["training"] = training
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps(record), flush=True)

@@ -3,7 +3,9 @@
 The same fields, defaults and parameter counts as the reference, so a
 config built here and one built there describe the same model.
 ``param_count`` / ``active_param_count`` count every arch, as the
-closed-form decode mapping (``imc.mapping``) needs.
+closed-form decode mapping (``imc.mapping``) needs.  ``ShapeConfig`` /
+``SHAPES`` are the reference's workload shapes (sequence, global batch,
+microbatches).
 """
 from __future__ import annotations
 
@@ -120,3 +122,20 @@ class ArchConfig:
         n_moe_layers = sum(
             self.n_pattern_repeats for _, ffn in c.pattern if ffn == "moe")
         return self.param_count() - n_moe_layers * (full_moe - act_moe)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str                    # train | prefill | decode
+    seq_len: int
+    global_batch: int
+    microbatches: int = 1        # grad-accumulation steps (train only)
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}

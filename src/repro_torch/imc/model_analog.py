@@ -380,11 +380,8 @@ def _forward_unrolled(params, cfg: ArchConfig, tokens: torch.Tensor):
     B, S, _ = x.shape
     positions = torch.broadcast_to(
         torch.arange(S, device=x.device)[None], (B, S))
-    for rep in range(cfg.n_pattern_repeats):
-        lp = model_mod.layer_params(params, rep)
-        for i, (mixer, f) in enumerate(cfg.pattern):
-            x, _ = model_mod._run_block(lp[f"pos{i}"], x, cfg, mixer, f,
-                                        positions)
+    x, _ = model_mod._scan_pattern(params["blocks"], x, cfg, positions,
+                                   remat=False)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return model_mod._logits(params, cfg, x)
 

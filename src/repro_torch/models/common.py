@@ -14,6 +14,7 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch._tree import tree_map
 from repro_torch.configs.base import ArchConfig
 
 _F32 = torch.float32
@@ -30,17 +31,6 @@ class ParamSpec:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
-
-
-def spec_leaves(specs: Any, path: Tuple[str, ...] = ()):
-    """(path, spec) pairs in the reference's tree order (dict keys sorted,
-    as ``jax.tree_util`` flattens them)."""
-    if isinstance(specs, ParamSpec):
-        return [(path, specs)]
-    out = []
-    for k in sorted(specs):
-        out += spec_leaves(specs[k], path + (k,))
-    return out
 
 
 def init_params(specs: Any, cfg: ArchConfig, generator: torch.Generator,
@@ -64,13 +54,7 @@ def init_params(specs: Any, cfg: ArchConfig, generator: torch.Generator,
                         dtype=_F32)
         return (z * scale).to(dtype)
 
-    out: dict = {}
-    for path, spec in spec_leaves(specs):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = mk(spec)
-    return out
+    return tree_map(mk, specs)
 
 
 # --------------------------------------------------------------------------

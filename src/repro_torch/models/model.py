@@ -12,9 +12,13 @@ per pattern position the block parameters are stacked with a leading
 ``layers`` axis (``blocks/pos0/attn/wq`` is (n_repeats, d, h*hd)), and the
 encoder's under ``encoder/blocks`` (n_encoder_layers, ...), so a tree
 exported from the reference as numpy arrays loads one to one
-(``params_from_reference``).  The forward is plain functions; the
-full-sequence layer loop lives in ``imc.model_analog._forward_unrolled``,
-as in the reference.
+(``params_from_reference``).  The forward is plain functions.
+
+Training: ``forward_train`` is the reference's logits-free loss — the
+pattern loop ``_scan_pattern`` (each repeat recomputed in the backward,
+as ``jax.checkpoint`` of the reference's scan body), then the
+cross-entropy over ``LOSS_CHUNK``-long sequence chunks, each chunk's
+logits recomputed in the backward too, so no (B, S, vocab) tensor is kept.
 
 Serving: ``init_cache`` / ``serve_prefill`` / ``serve_step``.  The cache
 holds per pattern position a preallocated KV cache ((n_repeats, B,
@@ -29,6 +33,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -39,6 +44,7 @@ from repro_torch.models.common import (DTYPES, ParamSpec,
                                        softcap)
 
 _F32 = torch.float32
+LOSS_CHUNK = 1024
 
 
 def _block_specs(cfg: ArchConfig, mixer: str, ffn: str,
@@ -132,6 +138,29 @@ def layer_params(params, rep: int):
     return _take(params["blocks"], rep)
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-repeat views of a stacked tree, one ``unbind`` per
+    leaf: its backward stacks the n gradients once, where n ``select``s
+    would each scatter into a zero tensor of the whole stack."""
+    if torch.is_tensor(tree):
+        views = torch.unbind(tree)
+        if len(views) != n:
+            raise ValueError(f"stacked axis {len(views)}, expected {n}")
+        return list(views)
+    per_key = {k: _unstack(v, n) for k, v in tree.items()}
+    return [{k: per_key[k][i] for k in tree} for i in range(n)]
+
+
+def _maybe_remat(fn, remat: bool, *args):
+    """``fn(*args)``, under autograd recomputed in the backward instead of
+    keeping its intermediates (``jax.checkpoint``).  The forward draws no
+    random numbers, so the RNG state is not stashed."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def _maybe_post(p, name, y, cfg):
     if cfg.post_norms:
         return rms_norm(y, p[name], cfg.norm_eps)
@@ -176,6 +205,28 @@ def _run_block(p, x, cfg: ArchConfig, mixer: str, ffn: str, positions,
     return x, aux if a is None else aux + a
 
 
+def _scan_pattern(blocks, x, cfg: ArchConfig, positions, enc_out=None,
+                  remat: bool = True):
+    """The repeating pattern over its stacked parameters ``blocks`` (the
+    reference's ``lax.scan`` as a loop over repeats), each repeat one
+    remat region with ``remat``.  With ``enc_out`` (encoder-decoder), each
+    block projects its cross K/V from it inside the region.  Returns (x,
+    the summed aux loss): the MoE aux leaves each region as an output."""
+    def body(x, aux, lps):
+        for i, (mixer, f) in enumerate(cfg.pattern):
+            lp = lps[f"pos{i}"]
+            kv = (None if enc_out is None else
+                  attn.project_memory_kv(lp["cross"], enc_out, cfg))
+            x, a = _run_block(lp, x, cfg, mixer, f, positions, kv)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=_F32, device=x.device)
+    for lps in _unstack(blocks, cfg.n_pattern_repeats):
+        x, aux = _maybe_remat(body, remat, x, aux, lps)
+    return x, aux
+
+
 def _embed(params, cfg: ArchConfig, tokens, frontend_embeds=None):
     """Token embedding in the compute dtype, scaled by sqrt(d_model) — the
     scale as a float32 square root rounded to the compute dtype, as the
@@ -209,19 +260,23 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # encoder (enc-dec archs)
 # --------------------------------------------------------------------------
-def _encode(params, cfg: ArchConfig, frame_embeds):
+def _encode(params, cfg: ArchConfig, frame_embeds, remat: bool = False):
     """The encoder stack over ``frame_embeds`` (B, F, d): bidirectional
-    attention + dense FFN per layer, then the final norm."""
+    attention + dense FFN per layer (each layer one remat region with
+    ``remat``), then the final norm."""
     x = frame_embeds.to(DTYPES[cfg.compute_dtype])
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     enc = params["encoder"]
-    for li in range(cfg.n_encoder_layers):
-        lp = _take(enc["blocks"], li)
+
+    def layer(x, lp):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + attn.encoder_attention(lp["attn"], h, cfg, positions)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn_mod.dense_ffn(lp["ffn"], h, cfg)
+        return x + ffn_mod.dense_ffn(lp["ffn"], h, cfg)
+
+    for lp in _unstack(enc["blocks"], cfg.n_encoder_layers):
+        x = _maybe_remat(layer, remat, x, lp)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -237,6 +292,58 @@ def _cross_kv(params, cfg: ArchConfig, enc_out):
         out[f"pos{i}"] = (torch.stack([k for k, _ in kv]),
                           torch.stack([v for _, v in kv]))
     return out
+
+
+# --------------------------------------------------------------------------
+# training forward (chunked CE loss; no (B, S, vocab) tensor kept)
+# --------------------------------------------------------------------------
+def _ce_chunk(h, labels, w, cap):
+    """[sum of token CE, valid tokens] of one chunk; labels -1 are
+    padding."""
+    logits = softcap((h @ w).to(_F32), cap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp_min(labels, 0)[..., None])
+    valid = (labels >= 0).to(_F32)
+    return torch.stack([torch.sum((logz - gold[..., 0]) * valid),
+                        torch.sum(valid)])
+
+
+def forward_train(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
+    """Returns (loss, {"ce", "aux", "tokens"}).  batch: tokens (B, S),
+    labels (B, S) with -1 = padding, optional ``frontend_embeds`` (B, F,
+    d) before the tokens or, for encoder-decoder archs,
+    ``encoder_frames``.  Frontend positions carry no label: they are
+    stripped before the loss.  loss = mean token CE + the MoE aux loss."""
+    tokens = batch["tokens"]
+    labels = batch["labels"].long()
+    fe = batch.get("frontend_embeds")
+    enc_out = None
+    if cfg.n_encoder_layers:
+        enc_out = _encode(params, cfg, batch["encoder_frames"], remat=True)
+        x = _embed(params, cfg, tokens)
+    else:
+        x = _embed(params, cfg, tokens, fe)
+    B, S, _ = x.shape
+    x, aux = _scan_pattern(params["blocks"], x, cfg,
+                           _positions(B, S, x.device), enc_out)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if fe is not None:
+        x = x[:, fe.shape[1]:]
+
+    w = _unembed_matrix(params, cfg).to(x.dtype)
+    S_txt = x.shape[1]
+    n_chunks = max(1, S_txt // LOSS_CHUNK)
+    if S_txt % n_chunks:
+        raise ValueError(f"{S_txt} text positions do not split into "
+                         f"{n_chunks} loss chunks")
+    L = S_txt // n_chunks
+    totals = torch.zeros(2, dtype=_F32, device=x.device)
+    for c in range(n_chunks):
+        totals = totals + _maybe_remat(
+            _ce_chunk, True, x[:, c * L:(c + 1) * L],
+            labels[:, c * L:(c + 1) * L], w, cfg.final_softcap)
+    ce = totals[0] / torch.clamp_min(totals[1], 1.0)
+    return ce + aux, {"ce": ce, "aux": aux, "tokens": totals[1]}
 
 
 # --------------------------------------------------------------------------

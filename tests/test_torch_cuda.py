@@ -747,3 +747,69 @@ def test_serving_on_card_matches_cpu(dev, no_tf32, arch):
                                    atol=2e-2, rtol=2e-2)
     for a, b in zip(out["cpu"], out[str(dev)]):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("arch", [
+    "qwen2-0.5b", "gemma2-2b", "olmoe-1b-7b", "mamba2-780m",
+    "jamba-1.5-large-398b", "llama4-maverick-400b-a17b",
+    "seamless-m4t-large-v2", "qwen2-vl-2b", "qwen3-8b", "internlm2-20b"])
+def test_train_step_on_card_matches_cpu(dev, no_tf32, arch):
+    """One train step (2 microbatches, step 100, lr 3e-3) of the same
+    parameters on the card and the CPU (smoke configs, float32): loss
+    within 1e-4 (jamba 1e-3, ROADMAP C14), gradient norm within 3e-3
+    (seamless measured 9.2e-4 on the H100; on the CPU its float32 norm
+    sits 5.7e-4 from float64, ROADMAP C16), every gradient on the card
+    finite (no inf x 0 in a masked exp's backward)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data import batch_at
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import data_config
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = smoke_config(arch)
+    shape = ShapeConfig("t", "train", 32, 4, microbatches=2)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = batch_at(data_config(cfg, shape), 0)
+    step = ST.make_train_step(cfg, shape, AdamWConfig(lr=3e-3))
+    met = {}
+    for d in ("cpu", dev):
+        p = M.params_to(params, d)
+        m, v = adamw_init(p)
+        *_, met[str(d)] = step(p, m, v, 100, {
+            k: torch.from_numpy(a).to(d) for k, a in batch.items()})
+    c, g = met["cpu"], met[str(dev)]
+    rtol = 1e-3 if arch.startswith("jamba") else 1e-4
+    assert g["loss"].item() == pytest.approx(c["loss"].item(), rel=rtol)
+    assert g["grad_norm"].item() == pytest.approx(c["grad_norm"].item(),
+                                                  rel=3e-3)
+    _, grads = ST.make_grad_step(cfg, shape)(M.params_to(params, dev), {
+        k: torch.from_numpy(a).to(dev) for k, a in batch.items()})
+    assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(grads))
+
+
+def test_train_resume_on_card_is_bit_equal(dev, tmp_path):
+    """``train`` on the card stopped at step 102 and resumed ends on the
+    checkpoint of a run that was not stopped, bit for bit."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+
+    cfg = smoke_config("qwen2-0.5b")
+    shape = ShapeConfig("r", "train", 16, 4, microbatches=2)
+    kw = dict(save_every=2, step0=100, total_steps=10000)
+    train(cfg, shape, AdamWConfig(lr=3e-3), 104, tmp_path / "a", **kw)
+    train(cfg, shape, AdamWConfig(lr=3e-3), 102, tmp_path / "b", **kw)
+    train(cfg, shape, AdamWConfig(lr=3e-3), 104, tmp_path / "b", **kw)
+    like = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    like = {"params": like, "m": like, "v": like, "step": torch.zeros(())}
+    a = Checkpointer(tmp_path / "a" / cfg.name).restore(104, like)
+    b = Checkpointer(tmp_path / "b" / cfg.name).restore(104, like)
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert torch.equal(x, y)

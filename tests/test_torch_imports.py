@@ -34,7 +34,7 @@ def _sources():
 TWINS = ("torch_model_accuracy_study", "torch_quickstart",
          "torch_imc_case_study", "torch_variation_study",
          "torch_retention_study", "torch_write_path_study",
-         "torch_fault_study", "torch_serving_study")
+         "torch_fault_study", "torch_serving_study", "torch_train_lm")
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
@@ -71,7 +71,13 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.imc.cost_model", "repro_torch.launch.traffic",
               "repro_torch.launch.scheduler", "repro_torch.launch.report",
               "repro_torch.launch.simulate", "repro_torch.launch.engine",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch._tree",
+              "repro_torch.optim", "repro_torch.optim.adamw",
+              "repro_torch.optim.schedule", "repro_torch.data",
+              "repro_torch.data.pipeline", "repro_torch.runtime",
+              "repro_torch.runtime.fault", "repro_torch.checkpoint",
+              "repro_torch.checkpoint.checkpointer",
+              "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert m in mods, m
     code = (
         "import sys\n"
@@ -159,6 +165,24 @@ def _entry_points():
         "evaluate_system": lambda: evaluate_system("afmtj"),
         **_analog_entry_points(),
         **_remainder_entry_points(),
+        **_training_entry_points(),
+    }
+
+
+def _training_entry_points():
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+
+    shape = ShapeConfig("t", "train", 8, 2)
+    return {
+        "train": lambda: train.train(smoke_config("qwen2-0.5b"), shape,
+                                     AdamWConfig(), 1, "unused-ckpt-dir"),
+        "train.main": lambda: train.main(["--arch", "qwen2-0.5b",
+                                          "--steps", "1"]),
+        "torch_train_lm.main": lambda: _twin("torch_train_lm").main(
+            ["--steps", "1"]),
     }
 
 
@@ -262,7 +286,8 @@ def _analog_entry_points():
     "device_cost_model", "fault_slo_curve", "ServeEngine",
     "ServeEngine_mamba", "serve.main",
     "torch_write_path_study.run", "torch_fault_study.run",
-    "torch_serving_study.run"]))
+    "torch_serving_study.run", "train", "train.main",
+    "torch_train_lm.main"]))
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default is valid")
