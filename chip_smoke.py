@@ -248,10 +248,44 @@ Phases (any failure raises and the script exits non-zero):
        the card and on the CPU: losses within ``FAMILY_LOSS_RTOL`` (jamba
        ``FAMILY_LOSS_RTOL_JAMBA``), every gradient on the card finite.
 
+11. Campaign scale-out at a study's size (phase 3's grid, 786,432 packed
+    lanes x 2,501 steps), each part failing the run on a miss:
+    a. ``reduce="stream"`` at 4,096 bins (WER surface and percentiles
+       bit-identical to phase 3's dense run) and 512 (WER bit-identical,
+       percentiles within ``sketch_tolerance``, ``host_bytes`` at least 4x
+       below dense); walls and ``host_bytes`` printed;
+    b. one-slice launches (``max_cells_per_launch``): 3 launches, bit for
+       bit the single launch;
+    c. a ``python -c`` child (a fresh cache directory) SIGKILLs itself in
+       ``on_slice_complete`` after launch 0; this process resumes:
+       ``n_resumed == 1``, the crossing tensor equal to (b)'s, no claim or
+       slice checkpoint left;
+    d. two children, released together by a file barrier, split the
+       3-launch campaign through one cache directory as a two-process
+       ``CampaignMesh`` on the one card: ``n_computed`` sums to 3 and both
+       crossing tensors' sha256 equal (b)'s; their startup printed;
+    e. donation: the donated campaign equal to the undonated one; a
+       donated ``llg_rk4_kernel`` call writes into the state block,
+       bit-identical to the undonated call in every layout of phase 1's
+       sweep (T = 2 included), and ``max_memory_allocated`` over one
+       launch at least one (8, cells) block below the undonated launch's;
+       ``write_verify("afmtj", 4096, WritePolicy(donate=True))`` equal to
+       the undonated schedule;
+    f. ``run_ensemble`` on 2,048 lanes over ``[cuda:0] * n``, n = 3, 5, 6:
+       n devices kept (``_device_plan``), n kernel calls, equal to the
+       one-device run;
+    g. the twins ``torch_array_mc_sim`` (full size; Monte-Carlo numbers
+       within ``MC_SIGMAS`` standard errors of ``REF_ARRAY_MC``) and
+       ``torch_analog_accuracy`` (full size; within
+       ``ANALOG_CARD_CPU_RTOL`` of its own CPU run, and within
+       ``MC_SIGMAS`` x sqrt(2) draw spreads of ``REF_ANALOG_ACCURACY``),
+       and ``torch_fault_study``'s section 4 (resumed, bit-identical).
+
 Each kernel's launch counter is set to 0 before its main-path run (phases
 2-3 for the LLG kernel, with its launches by layout, 2 and 6 for the
 write kernel, 5b and 9b (per arch) for the analog kernels, both in phase
-7, and the LLG and bit-line MAC kernels in phase 8) and read after it (the
+7, the LLG and bit-line MAC kernels in phase 8, and the LLG, bit-line MAC
+and XNOR kernels in phase 11) and read after it (the
 analog wrappers count their mainloop launches under ``launches``, and the
 split-K reduce pass a split call adds under ``reduce_launches``); the
 second-to-last line is the per-kernel JSON record and the last line
@@ -266,6 +300,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -815,6 +850,7 @@ def phase3(torch, dev):
     assert ((wer >= 0) & (wer <= 1)).all()
     assert (np.diff(wer, axis=2) <= 0).all(), "WER must not grow with pulse"
     assert (wer[:, 1] <= wer[:, 0]).all(), "WER must not grow with voltage"
+    PHASE3_DENSE.update(result=res, wall=wall)
     return llg_rk4_kernel.launches, grid, wall
 
 
@@ -3139,6 +3175,570 @@ def phase10_families(torch, dev) -> dict:
     return dict(archs=out, wall_s=time.perf_counter() - t0)
 
 
+# --- phase 11: campaign scale-out -------------------------------------------
+
+# the reference's own output of examples/array_mc_sim.py and
+# examples/analog_accuracy.py (src/repro, CPU), unrounded, as
+# tools/ref_study_numbers.py --only array_mc analog_accuracy prints it; the
+# array study adds the switched cells' latency std, which the holds use
+REF_ARRAY_MC = {
+    'rows': 64, 'cols': 64, 'n_steps': 4100, 'switched': 1.0,
+    'n_switched': 4096, 'mean': 1.425544677734375e-10,
+    'std': 3.4715942501893996e-11, 'p50': 1.3785e-10,
+    'p99': 2.3950500000000004e-10, 'max': 2.9320000000000003e-10,
+    'wer': [0.00634765625, 0.0, 0.0, 0.0], 'v_worst': 0.852343738079071,
+    'pulse': 2.5e-10}
+REF_ANALOG_ACCURACY = {
+    'gemma2-2b': {'surface': {
+        '4/0.8': [0.2207807281853262, 0.22650540043357084, 0.9045242846231297],
+        '4/5.0': [0.039165034063987914, 0.040180552879649514, 0.9805308339807208],
+        '6/0.8': [0.1889375147588793, 0.19383651729538945, 0.9160743352048869],
+        '6/5.0': [0.012535925556589165, 0.01286097233820693, 0.9936299399412404],
+        '8/0.8': [0.18721309909181127, 0.19206738887374886, 0.91714469994039],
+        '8/5.0': [0.011139046109828282, 0.011427872895847957, 0.9943446505089018]},
+        'bnn': [0.5504346564734367, 0.5647069982139736, 0.6601307770078042]},
+    'qwen3-8b': {'surface': {
+        '4/0.8': [0.28347536491710706, 0.27048414558560036, 0.886178785541028],
+        '4/5.0': [0.04307607177802106, 0.04110196479848992, 0.9800276094756395],
+        '6/0.8': [0.2523877447666898, 0.2408212209884871, 0.897457936999894],
+        '6/5.0': [0.01616413439809475, 0.0154233581569882, 0.9923324295237143],
+        '8/0.8': [0.2512759499597148, 0.2397603779465562, 0.8974794266805413],
+        '8/5.0': [0.014713724846502473, 0.01403941853872067, 0.993007215164935]},
+        'bnn': [0.6247110805077595, 0.5960815780179327, 0.6355650877850791]},
+    'mamba2-780m': {'surface': {
+        '4/0.8': [0.24985458339357108, 0.2346636529285762, 0.8986070347688979],
+        '4/5.0': [0.042175560735494666, 0.039611325163934785, 0.9804593078732323],
+        '6/0.8': [0.222162855472474, 0.20865555677277, 0.9078665092192832],
+        '6/5.0': [0.014669264522476617, 0.013777386637720981, 0.99312756488043],
+        '8/0.8': [0.2201971543613991, 0.20680936849387024, 0.9085252701443736],
+        '8/5.0': [0.013429615398638416, 0.012613107048375387, 0.9936992109846798]},
+        'bnn': [0.638081299534843, 0.5992865393163407, 0.6335248593268462]}}
+# the relative standard deviation of the analog twin's nmse and cosine over
+# projection draws (tools/analog_draw_spread.py, 12 draws, CPU; every arch
+# draws the same 384 x 256 shape): the twin's torch draws and the
+# reference's jax.random draws are two samples, so the twin is held within
+# MC_SIGMAS x sqrt(2) x this of the reference's output (ROADMAP C18)
+ANALOG_SPREAD = {'4/0.8': (0.0782, 0.007831), '4/5.0': (0.0478, 0.000902),
+                 '6/0.8': (0.0698, 0.00663), '6/5.0': (0.0752, 0.000565),
+                 '8/0.8': (0.0691, 0.00652), '8/5.0': (0.0788, 0.000543),
+                 'bnn': (0.0342, 0.025416)}
+# the analog twin on the card against the same twin's plain versions on the
+# CPU, on the same draws: nmse and cosine within 1% (the ADC'd outputs may
+# differ by 1 LSB on under 1% of elements, phase 5)
+ANALOG_CARD_CPU_RTOL = 0.01
+STREAM_BINS = (4096, 512)
+DEVICE_PLAN_COUNTS = (3, 5, 6)
+# a child process may take this long to import torch, reach the card and
+# finish its part
+CHILD_TIMEOUT_S = 300
+# phase 3's dense result, kept for phase 11 (filled by phase3)
+PHASE3_DENSE = {}
+# the device the child processes of 11c and 11d run on
+CHILD_DEVICE = "cuda"
+
+CHILD_KILL = """
+import os, signal, sys, time
+sys.path.insert(0, sys.argv[2])
+import torch
+from repro_torch.campaign import CampaignGrid, run_campaign
+from repro_torch.core.params import AFMTJ_PARAMS
+
+grid = CampaignGrid(voltages=(0.6, 1.2), pulse_widths=(120e-12, 250e-12),
+                    temperatures=(300.0, 350.0, 400.0), n_samples=100_000,
+                    dt=0.1e-12, seed=0)
+
+def die(i, n):
+    if i == 0:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+run_campaign(AFMTJ_PARAMS, grid, cache_dir=sys.argv[1],
+             max_cells_per_launch=int(sys.argv[3]), on_slice_complete=die,
+             device=sys.argv[4])
+"""
+
+CHILD_MESH = """
+import hashlib, json, os, sys, time
+t0 = time.perf_counter()
+root, pi, src, per = sys.argv[1], int(sys.argv[2]), sys.argv[3], int(sys.argv[4])
+dev = sys.argv[5]
+sys.path.insert(0, src)
+import numpy as np
+import torch
+from repro_torch.campaign import CampaignGrid, run_campaign
+from repro_torch.core.params import AFMTJ_PARAMS
+from repro_torch.launch.mesh import CampaignMesh
+
+torch.zeros(1, device=dev)                     # the CUDA context
+if dev == "cuda":
+    from repro_torch.kernels import llg_rk4
+    llg_rk4._library()                         # the built kernel library
+ready = time.perf_counter() - t0
+grid = CampaignGrid(voltages=(0.6, 1.2), pulse_widths=(120e-12, 250e-12),
+                    temperatures=(300.0, 350.0, 400.0), n_samples=100_000,
+                    dt=0.1e-12, seed=0)
+open(os.path.join(root, f"ready{pi}"), "w").close()
+while not os.path.exists(os.path.join(root, "go")):
+    time.sleep(0.005)
+t1 = time.perf_counter()
+mesh = CampaignMesh(n_devices=1, process_index=pi, process_count=2,
+                    claim_ttl_s=120.0, poll_s=0.01)
+res = run_campaign(AFMTJ_PARAMS, grid, cache_dir=os.path.join(root, "cache"),
+                   max_cells_per_launch=per, mesh=mesh, device=dev)
+json.dump({"n_computed": res.n_computed, "n_launches": res.n_launches,
+           "n_resumed": res.n_resumed, "from_cache": res.from_cache,
+           "ready_s": ready, "run_s": time.perf_counter() - t1,
+           "sha": hashlib.sha256(
+               np.ascontiguousarray(res.crossing_time).tobytes()).hexdigest()},
+          open(os.path.join(root, f"out{pi}.json"), "w"))
+"""
+
+
+def sha256_of(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def phase11_stream(torch, grid, dense) -> dict:
+    """11a: the study grid streamed at ``STREAM_BINS``: the WER surface
+    equal to the dense one bit for bit at every bin count, the percentiles
+    equal with one bin per step, and with fewer bins than steps within
+    ``sketch_tolerance`` and the streamed copy at least 4x below the dense
+    one."""
+    import numpy as np
+
+    from repro_torch.campaign import run_campaign
+    from repro_torch.core.params import AFMTJ_PARAMS
+
+    out = {"dense_host_bytes": dense.host_bytes,
+           "dense_wall_s": PHASE3_DENSE.get("wall", dense.elapsed_s)}
+    qs = (10.0, 50.0, 90.0, 99.0)
+    for n_bins in STREAM_BINS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_campaign(AFMTJ_PARAMS, grid, use_cache=False,
+                           reduce="stream", n_bins=n_bins)
+        wall = time.perf_counter() - t0
+        if not res.reduced or res.crossing_time is not None:
+            raise AssertionError("the streamed campaign returned lanes")
+        if not np.array_equal(res.wer_surface(), dense.wer_surface()):
+            raise AssertionError(f"streamed WER ({n_bins} bins) != dense")
+        lp_s, lp_d = res.latency_percentiles(qs), dense.latency_percentiles(qs)
+        gap = float(np.nanmax(np.abs(lp_s - lp_d)))
+        tol = res.sketch_tolerance
+        if n_bins >= grid.n_steps:
+            if not np.array_equal(lp_s, lp_d):
+                raise AssertionError("per-step-bin percentiles != dense")
+        elif not gap <= tol:
+            raise AssertionError(f"{n_bins}-bin percentiles {gap:.3e} s from "
+                                 f"dense, tolerance {tol:.3e}")
+        ratio = dense.host_bytes / res.host_bytes
+        if n_bins < grid.n_steps and ratio < 4:
+            raise AssertionError(f"streamed copy only {ratio:.2f}x below dense")
+        how = ("bit-identical" if n_bins >= grid.n_steps else
+               f"within {gap:.3e} s (tolerance {tol:.3e})")
+        log(f"  11a stream, {n_bins} bins: {wall:.3f} s wall, host_bytes "
+            f"{res.host_bytes} (dense {dense.host_bytes}, {ratio:.1f}x "
+            f"less); WER bit-identical, percentiles {how}")
+        out[f"bins_{n_bins}"] = dict(wall_s=wall, host_bytes=res.host_bytes,
+                                     ratio=ratio, percentile_gap_s=gap,
+                                     sketch_tolerance_s=tol)
+    return out
+
+
+def phase11_split_resume(torch, grid, dense) -> dict:
+    """11b and 11c: the grid in one-slice launches equal to the single
+    launch bit for bit; a child process SIGKILLs itself after launch 0 is
+    checkpointed, and this process resumes from the checkpoint."""
+    import numpy as np
+
+    from repro_torch.campaign import bucket_cells, run_campaign
+    from repro_torch.core.params import AFMTJ_PARAMS
+
+    per = bucket_cells(grid.cells)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    split = run_campaign(AFMTJ_PARAMS, grid, use_cache=False,
+                         max_cells_per_launch=per)
+    wall_split = time.perf_counter() - t0
+    if split.n_launches != 3 or split.n_computed != 3:
+        raise AssertionError(f"split campaign: {split.n_launches} launches")
+    if not np.array_equal(split.crossing_time, dense.crossing_time):
+        raise AssertionError("the split campaign != the single launch")
+    log(f"  11b split into {split.n_launches} launches of {per} lanes: "
+        f"{wall_split:.3f} s wall, bit-identical to the single launch; "
+        f"host_bytes {split.host_bytes}")
+    cache = ROOT / "build" / "smoke-resume-cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", CHILD_KILL, str(cache), str(ROOT / "src"),
+         str(per), CHILD_DEVICE], capture_output=True, text=True,
+        timeout=CHILD_TIMEOUT_S)
+    wall_child = time.perf_counter() - t0
+    if child.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the child was not killed: rc "
+                             f"{child.returncode}\n{child.stderr[-2000:]}")
+    left = sorted(p.name for p in cache.iterdir())
+    t0 = time.perf_counter()
+    res = run_campaign(AFMTJ_PARAMS, grid, cache_dir=str(cache),
+                       max_cells_per_launch=per)
+    wall_resume = time.perf_counter() - t0
+    after = sorted(p.name for p in cache.iterdir())
+    log(f"  11c child killed in on_slice_complete(0) after {wall_child:.2f} s "
+        f"(left {left}); resume in {wall_resume:.3f} s: n_resumed "
+        f"{res.n_resumed}, n_computed {res.n_computed}; cache now {after}")
+    if res.n_resumed != 1 or res.n_computed != 2:
+        raise AssertionError(f"resume: n_resumed {res.n_resumed}, "
+                             f"n_computed {res.n_computed}")
+    if not np.array_equal(res.crossing_time, split.crossing_time):
+        raise AssertionError("the resumed campaign != the split one")
+    if len(left) != 1 or not left[0].endswith(".npz"):
+        raise AssertionError(f"the child left {left}, not one checkpoint")
+    if len(after) != 1 or any(n.endswith((".claim", ".tmp")) for n in after):
+        raise AssertionError(f"after resume the cache holds {after}: a claim "
+                             f"or a slice checkpoint was left")
+    shutil.rmtree(cache, ignore_errors=True)
+    return dict(split=split, split_wall_s=wall_split,
+                child_wall_s=wall_child, resume_wall_s=wall_resume,
+                n_resumed=res.n_resumed)
+
+
+def phase11_two_processes(split) -> dict:
+    """11d: two child processes on the one card, released together by a
+    file barrier, split the 3-launch campaign through one cache directory
+    as a two-process ``CampaignMesh``."""
+    from repro_torch.campaign import bucket_cells
+
+    root = ROOT / "build" / "smoke-mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    per = bucket_cells(split.grid.cells)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CHILD_MESH, str(root), str(i),
+         str(ROOT / "src"), str(per), CHILD_DEVICE],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    try:
+        deadline = time.time() + CHILD_TIMEOUT_S
+        while not all((root / f"ready{i}").exists() for i in range(2)):
+            for pr in procs:
+                if pr.poll() is not None:
+                    raise AssertionError(f"a child died: "
+                                         f"{pr.communicate()[1][-2000:]}")
+            if time.time() > deadline:
+                raise AssertionError("the children never became ready")
+            time.sleep(0.01)
+        startup = time.perf_counter() - t0
+        (root / "go").touch()
+        errs = [pr.communicate(timeout=CHILD_TIMEOUT_S)[1] for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    wall = time.perf_counter() - t0
+    if any(pr.returncode != 0 for pr in procs):
+        raise AssertionError(f"a child failed: {[e[-2000:] for e in errs]}")
+    outs = [json.loads((root / f"out{i}.json").read_text()) for i in range(2)]
+    sha = sha256_of(split.crossing_time)
+    total = sum(o["n_computed"] for o in outs)
+    ready = ", ".join(f"{o['ready_s']:.2f}" for o in outs)
+    log(f"  11d two processes on one card: both ready after {startup:.2f} s "
+        f"(import + CUDA context + library: {ready} s), {wall:.2f} s in "
+        f"all; n_computed {[o['n_computed'] for o in outs]} (sum {total}), "
+        f"runs {[round(o['run_s'], 3) for o in outs]} s")
+    if total != 3 or any(o["n_launches"] != 3 for o in outs):
+        raise AssertionError(f"the two processes computed {total} launches")
+    if any(o["sha"] != sha for o in outs):
+        raise AssertionError("a process assembled another crossing tensor")
+    if list(root.joinpath("cache").glob("*.claim")):
+        raise AssertionError("a claim was left behind")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(startup_s=startup, ready_s=[o["ready_s"] for o in outs],
+                run_s=[o["run_s"] for o in outs], wall_s=wall,
+                n_computed=[o["n_computed"] for o in outs])
+
+
+def phase11_donate(torch, dev, grid, dense) -> dict:
+    """11e: the donated campaign equal to the undonated one; a donated
+    kernel call writes into the state block, bit-identical to the
+    undonated call in every layout, and allocates one (8, cells) block
+    less; write-verify with ``WritePolicy(donate=True)`` equal to the
+    undonated schedule."""
+    import numpy as np
+
+    from repro_torch.campaign import pack_campaign, run_campaign
+    from repro_torch.campaign.engine import EARLY_EXIT_CHUNK, _quantize_steps
+    from repro_torch.core.params import AFMTJ_PARAMS
+    from repro_torch.imc.write_path import WritePolicy, write_verify
+    from repro_torch.kernels.llg_rk4 import llg_rk4_kernel, takes_producers
+
+    don = run_campaign(AFMTJ_PARAMS, grid, use_cache=False, donate=True)
+    if not np.array_equal(don.crossing_time, dense.crossing_time):
+        raise AssertionError("the donated campaign != the undonated one")
+    state, seeds, sigma, budget, _ = pack_campaign(grid, AFMTJ_PARAMS, dev)
+    n = _quantize_steps(grid.n_steps)
+    kw = dict(thermal_sigma=sigma, seeds=seeds, step_budget=budget,
+              chunk=EARLY_EXIT_CHUNK)
+    block = torch.empty_like(state)
+    for lay in layouts_for(2, takes_producers(True, EARLY_EXIT_CHUNK)):
+        want = llg_rk4_kernel(state, AFMTJ_PARAMS, grid.dt, n, **kw,
+                              layout=lay)
+        block.copy_(state)
+        got = llg_rk4_kernel(block, AFMTJ_PARAMS, grid.dt, n, **kw,
+                             layout=lay, out=block)
+        torch.cuda.synchronize()
+        if got.data_ptr() != block.data_ptr():
+            raise AssertionError("the donated call did not write into state")
+        if not torch.equal(got, want):
+            raise AssertionError(f"donated != undonated in layout "
+                                 f"{layout_tag(lay)}")
+    del want, got
+    peaks = {}
+    for donate in (False, True, False, True):
+        block.copy_(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        r = llg_rk4_kernel(block, AFMTJ_PARAMS, grid.dt, n, **kw,
+                           out=block if donate else None)
+        torch.cuda.synchronize()
+        peaks[donate] = torch.cuda.max_memory_allocated() - base
+        del r
+    one_block = 8 * state.shape[1] * 4
+    delta = peaks[False] - peaks[True]
+    log(f"  11e donated campaign bit-identical; donated kernel call "
+        f"bit-identical in all {len(layouts_for(2, True))} layouts, writes "
+        f"into the state block; peak over one launch {peaks[False]} B "
+        f"undonated, {peaks[True]} B donated ({delta} B less; one block "
+        f"{one_block} B)")
+    if delta < one_block:
+        raise AssertionError(f"donation saved {delta} B, less than one block")
+    pol = WritePolicy(v_write=1.0, max_attempts=8, seed=0, use_cache=False)
+    a = write_verify("afmtj", 4096, dataclasses.replace(pol, donate=True))
+    b = write_verify("afmtj", 4096, pol)
+    for f in ("attempts", "success", "crossing_time", "energy"):
+        if not np.array_equal(getattr(a, f), getattr(b, f), equal_nan=True):
+            raise AssertionError(f"donated write-verify {f} != undonated")
+    log(f"  11e write_verify('afmtj', 4096, donate=True): {a.rounds} rounds, "
+        f"attempts mean {a.attempts_mean:.4f}, bit-identical to the "
+        f"undonated schedule")
+    return dict(peak_undonated_bytes=peaks[False],
+                peak_donated_bytes=peaks[True], saved_bytes=delta,
+                block_bytes=one_block, write_verify_rounds=a.rounds)
+
+
+def phase11_devices(torch, dev) -> dict:
+    """11f: ``run_ensemble`` on 2,048 lanes over ``[cuda:0] * n``: ``n``
+    devices kept (padded, not fewer), ``n`` kernel calls, equal to the
+    one-device run bit for bit."""
+    import numpy as np
+
+    from repro_torch.campaign.engine import _device_plan, run_ensemble
+    from repro_torch.core import llg
+    from repro_torch.core.params import AFMTJ_PARAMS
+    from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
+
+    th = torch.linspace(0.05, 0.15, 2048, device=dev)
+    m0 = llg.initial_state(AFMTJ_PARAMS, th, torch.full_like(th, 0.2))
+    v = torch.full((2048,), 1.0, device=dev)
+    one = run_ensemble(AFMTJ_PARAMS, m0, v, 0.1e-12, 2000, seed=3, chunk=64)
+    out = {}
+    for n in DEVICE_PLAN_COUNTS:
+        devs = [dev] * n
+        got_n, cols = _device_plan(2048, devs, dev)
+        before = llg_rk4_kernel.launches
+        res = run_ensemble(AFMTJ_PARAMS, m0, v, 0.1e-12, 2000, seed=3,
+                           chunk=64, devices=devs)
+        calls = llg_rk4_kernel.launches - before
+        if got_n != n or cols % (512 * n) or calls != n:
+            raise AssertionError(f"{n} devices: plan {got_n} x {cols} lanes, "
+                                 f"{calls} calls")
+        if not (np.array_equal(res.crossing_steps, one.crossing_steps)
+                and np.array_equal(res.final_state, one.final_state)):
+            raise AssertionError(f"{n}-device ensemble != one device")
+        out[n] = dict(plan_cols=cols, calls=calls)
+    log(f"  11f run_ensemble 2,048 lanes x 2,000 steps over [cuda:0] x n: "
+        + ", ".join(f"n={n}: {o['calls']} calls of {o['plan_cols'] // n} "
+                    f"lanes" for n, o in out.items())
+        + "; each bit-identical to one device")
+    return out
+
+
+def _cdf(x, at: float) -> float:
+    import numpy as np
+
+    return float(np.mean(np.asarray(x) <= at))
+
+
+def hold_array_mc_twin(res: dict) -> None:
+    """The array twin against the reference's output, MC_SIGMAS standard
+    errors of a difference of two estimates: the switched share and each
+    WER (binomial, the reference's rate floored at 1/n), the mean latency
+    (the reference's std), p50 and p99 by the twin's share of switched
+    cells at or below the reference's quantile (binomial at q); the
+    margined pulse on the same rung or one off.  The maximum is an extreme
+    order statistic with no standard error: logged, not held."""
+    import numpy as np
+
+    from repro_torch.imc.write_margin import _LADDERS
+
+    ref = REF_ARRAY_MC
+    n = ref["rows"] * ref["cols"]
+    if (res["rows"], res["cols"], res["n_steps"]) != (
+            ref["rows"], ref["cols"], ref["n_steps"]):
+        raise AssertionError("array twin: another size than the reference's")
+
+    def binom(got, want, what):
+        q = min(max(want, 1.0 / n), 1.0 - 1.0 / n)
+        b = MC_SIGMAS * math.sqrt(2.0 * q * (1.0 - q) / n)
+        _mc_hold(abs(got - want) <= b, f"array twin {what}", got, want,
+                 f"|d| <= {b:.4f}")
+
+    binom(res["switched"], ref["switched"], "switched share")
+    for pl, g, w in zip((250, 300, 350, 400), res["wer"], ref["wer"]):
+        binom(g, w, f"WER at {pl} ps")
+    b = MC_SIGMAS * math.sqrt(2.0) * ref["std"] / math.sqrt(ref["n_switched"])
+    _mc_hold(abs(res["mean"] - ref["mean"]) <= b, "array twin mean latency",
+             res["mean"], ref["mean"], f"|d| <= {b:.3e} s")
+    t_sw = np.minimum(res["crossing_steps"], res["n_steps"]) * 0.1e-12
+    ok = t_sw[res["crossing_steps"] < res["n_steps"]]
+    for q, key in ((0.5, "p50"), (0.99, "p99")):
+        share = _cdf(ok, ref[key] + 1e-16)
+        bq = MC_SIGMAS * math.sqrt(2.0 * q * (1.0 - q) / n)
+        _mc_hold(abs(share - q) <= bq, f"array twin share at or below the "
+                 f"reference's {key} ({ref[key]:.4e} s; twin {key} "
+                 f"{res[key]:.4e})", share, q, f"|d| <= {bq:.4f}")
+    log(f"    array twin max latency {res['max']:.4e} s (reference "
+        f"{ref['max']:.4e}; not held: an extreme order statistic)")
+    rungs = list(_LADDERS["afmtj"])
+    off = abs(rungs.index(res["pulse"]) - rungs.index(ref["pulse"]))
+    _mc_hold(off <= 1 and res["v_worst"] == ref["v_worst"],
+             "array twin worst-cell margined pulse", res["pulse"],
+             ref["pulse"], "the same rung or one off, at the same worst drive")
+
+
+def hold_analog_twin(card: dict, cpu: dict) -> float:
+    """The analog twin on the card against itself on the CPU (same draws:
+    within ``ANALOG_CARD_CPU_RTOL``), and against the reference's output
+    (other draws: within MC_SIGMAS x sqrt(2) x ``ANALOG_SPREAD``).  Returns
+    the largest card-vs-CPU relative gap."""
+    worst = 0.0
+    for arch, ref in REF_ANALOG_ACCURACY.items():
+        rows = [(k, card[arch]["surface"][k], cpu[arch]["surface"][k], v)
+                for k, v in ref["surface"].items()]
+        rows.append(("bnn", card[arch]["bnn"], cpu[arch]["bnn"], ref["bnn"]))
+        for key, g, c, w in rows:
+            for j, what in ((1, "nmse"), (2, "cosine")):
+                gap = abs(g[j] - c[j]) / abs(c[j])
+                worst = max(worst, gap)
+                if gap > ANALOG_CARD_CPU_RTOL:
+                    raise AssertionError(
+                        f"analog twin {arch} {key} {what}: card {g[j]!r}, "
+                        f"CPU {c[j]!r}")
+                b = (MC_SIGMAS * math.sqrt(2.0) * ANALOG_SPREAD[key][j - 1]
+                     * abs(w[j]))
+                _mc_hold(abs(g[j] - w[j]) <= b, f"analog twin {arch} {key} "
+                         f"{what}", g[j], w[j], f"|d| <= {b:.4g}")
+    return worst
+
+
+def phase11_twins(torch) -> dict:
+    """11g: the two new twins at full size and the fault study's section 4
+    on the card, held against the reference's output."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_analog_accuracy
+    import torch_array_mc_sim
+    import torch_fault_study
+
+    walls = {}
+    t0 = time.perf_counter()
+    arr = torch_array_mc_sim.run(use_cache=False)
+    walls["torch_array_mc_sim"] = time.perf_counter() - t0
+    for line in torch_array_mc_sim.report(arr):
+        log("    " + line)
+    hold_array_mc_twin(arr)
+    t0 = time.perf_counter()
+    card = torch_analog_accuracy.run()
+    walls["torch_analog_accuracy"] = time.perf_counter() - t0
+    for line in torch_analog_accuracy.report(card):
+        log("    " + line)
+    t0 = time.perf_counter()
+    cpu = torch_analog_accuracy.run(device="cpu")
+    walls["torch_analog_accuracy (CPU)"] = time.perf_counter() - t0
+    gap = hold_analog_twin(card, cpu)
+    log(f"    analog twin card vs CPU: largest relative gap {gap:.3e}")
+    t0 = time.perf_counter()
+    rs = torch_fault_study.resume_demo()
+    walls["torch_fault_study section 4"] = time.perf_counter() - t0
+    log(f"    fault study section 4: {rs}")
+    if not (rs["same"] and rs["n_resumed"] == 1 and rs["n_launches"] == 2):
+        raise AssertionError(f"fault study section 4: {rs}")
+    log("  11g walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                     walls.items()))
+    return dict(walls=walls, array_mc_elapsed_s=arr["elapsed_s"],
+                analog_card_cpu_gap=gap)
+
+
+def phase11(torch, dev) -> dict:
+    """Phase 11, campaign scale-out at a study's size: streaming (11a),
+    split launches (11b), crash and resume (11c), two processes on the one
+    card (11d), donation (11e), device plans (11f), the twins (11g).  The
+    LLG kernel's counter is set to 0 before the phase and read after it
+    (children's launches are their own processes' and not counted)."""
+    from repro_torch.campaign import run_campaign
+    from repro_torch.core.params import AFMTJ_PARAMS
+    from repro_torch.kernels import analog_mac, llg_rk4
+    from repro_torch.kernels.bitline_mac import bitline_mac_kernel
+    from repro_torch.kernels.xnor_gemm import xnor_gemm_kernel
+
+    log("phase 11: campaign scale-out (phase 3's grid: 786,432 packed lanes "
+        "x 2,501 steps)")
+    t0 = time.perf_counter()
+    grid = campaign_grid()
+    dense = PHASE3_DENSE.get("result")
+    if dense is None:
+        dense = run_campaign(AFMTJ_PARAMS, grid, use_cache=False)
+    llg_rk4.reset_counts()
+    analog_mac.reset_counts(bitline_mac_kernel)
+    analog_mac.reset_counts(xnor_gemm_kernel)
+    walls = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        r = fn()
+        walls[name] = time.perf_counter() - t
+        return r
+
+    stream = timed("11a", lambda: phase11_stream(torch, grid, dense))
+    sr = timed("11b-c", lambda: phase11_split_resume(torch, grid, dense))
+    mesh = timed("11d", lambda: phase11_two_processes(sr.pop("split")))
+    donate = timed("11e", lambda: phase11_donate(torch, dev, grid, dense))
+    devices = timed("11f", lambda: phase11_devices(torch, dev))
+    twins = timed("11g", lambda: phase11_twins(torch))
+    launches = llg_rk4.llg_rk4_kernel.launches
+    layouts = {f"{cells} lanes, NSUB={nsub}, {layout_tag(lay)}": n
+               for (cells, nsub, *lay), n in
+               sorted(llg_rk4.llg_rk4_kernel.launch_layouts.items())}
+    b3, b4 = bitline_mac_kernel.launches, xnor_gemm_kernel.launches
+    total = time.perf_counter() - t0
+    log(f"  phase 11 total: {total:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + f"); LLG launches {launches}, bit-line MAC {b3}, XNOR {b4}")
+    if launches <= 0 or b3 <= 0 or b4 <= 0:
+        raise AssertionError("phase 11 never launched the LLG, bit-line MAC "
+                             "or XNOR kernel")
+    return dict(stream=stream, resume=sr, two_processes=mesh, donate=donate,
+                devices={str(k): v for k, v in devices.items()}, twins=twins,
+                walls=walls, total_s=total, launches=launches,
+                launch_layouts=layouts, bitline_launches=b3,
+                xnor_launches=b4)
+
+
 def kernel_counts() -> dict:
     from repro_torch.kernels.bitline_mac import bitline_mac_kernel
     from repro_torch.kernels.fake_analog import fake_analog_kernel
@@ -3266,6 +3866,7 @@ def main() -> int:
     family_shapes = phase9_hold(torch, dev)
     families = phase9(torch, dev, family_shapes)
     training = phase10(torch, dev, smi)
+    scale = phase11(torch, dev)
 
     record = {"kernels": [{
         "name": "llg_rk4",
@@ -3314,6 +3915,10 @@ def main() -> int:
         # their first PHASE8_TRUNC_STEPS steps)
         "launches_phase8": remainder["launches"],
         "phase8_shapes": remainder["shapes"],
+        # phase 11, campaign scale-out: its own count (set to 0 before it;
+        # the child processes' launches are theirs) and layouts
+        "launches_phase11": scale["launches"],
+        "launch_layouts_phase11": scale["launch_layouts"],
     }]}
     replaces = {"bitline_mac": "src/repro/kernels/bitline_mac.py:87",
                 "xnor_gemm": "src/repro/kernels/xnor_gemm.py:76",
@@ -3368,6 +3973,11 @@ def main() -> int:
                 + shape_rows(name, family_shapes, phase9_counts[name])),
             "launches_phase9": {arch: fam["launches"][name] for arch, fam
                                 in families["paths"].items()},
+            # phase 11's analog twin (B3 analog points, B4 bnn rows)
+            **({"launches_phase11": scale["bitline_launches"]}
+               if name == "bitline_mac" else
+               {"launches_phase11": scale["xnor_launches"]}
+               if name == "xnor_gemm" else {}),
         })
     w = write[2]                # the quickstart's voltages, AFMTJ
     record["kernels"].append({
@@ -3416,6 +4026,8 @@ def main() -> int:
     # phase 10: no kernel is on the training path (kernels_on_path is
     # empty); every kernel above keeps its own main-path launches
     record["training"] = training
+    record["phase11"] = {k: v for k, v in scale.items()
+                         if k not in ("launch_layouts",)}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps(record), flush=True)

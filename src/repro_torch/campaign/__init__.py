@@ -3,8 +3,12 @@
   grid    — CampaignGrid axes + SoA packing (fused corner x temperature
             plane, power-of-two lane buckets, log horizon ladder)
   engine  — run_campaign / run_ensemble through the LLG kernel + surface
-            reductions (dense mode, one device, process-corner axis)
-  cache   — content-addressed npz result cache of the port
+            reductions (process-corner axis), split launches with slice
+            checkpoints and crash resume, the streaming on-device
+            reduction, donated launches, device plans and multi-process
+            campaigns (DESIGN.md §13, §14)
+  cache   — content-addressed npz result cache of the port + lockless
+            work claims
 """
 from repro_torch.campaign.cache import campaign_key  # noqa: F401
 from repro_torch.campaign.engine import (  # noqa: F401

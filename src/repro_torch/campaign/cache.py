@@ -1,11 +1,13 @@
 """On-disk campaign result cache of the port (content-addressed npz).
 
-Port of ``repro.campaign.cache`` (generic store + campaign keys).  The
-port's entries never mix with the reference's: its keys carry a port and
-backend tag (a CUDA-kernel result and a CPU-plain result differ in the last
-float32 bits), and its default directory is its own,
-``$REPRO_TORCH_CAMPAIGN_CACHE`` or ``~/.cache/repro-torch-campaigns``.
-Writes are atomic (tmp + rename).
+Port of ``repro.campaign.cache``: the generic store, its stale-file sweeps,
+the lockless work claims and the campaign keys.  The port's entries never
+mix with the reference's: its keys carry a port and backend tag (a
+CUDA-kernel result and a CPU-plain result differ in the last float32 bits),
+and its default directory is its own, ``$REPRO_TORCH_CAMPAIGN_CACHE`` or
+``~/.cache/repro-torch-campaigns``; claims are files of that directory named
+after the port's keys.  Writes are atomic (tmp + rename), so concurrent
+campaign processes never observe a torn file.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import hashlib
 import json
 import os
 import tempfile
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -57,6 +60,28 @@ def load_arrays(key: str, cache_dir: Optional[str] = None) -> Optional[dict]:
         return None
 
 
+def gc_stale_tmp(cache_dir: Optional[str] = None,
+                 max_age_s: float = 86400.0) -> int:
+    """Remove ``*.tmp`` files older than ``max_age_s`` seconds; returns how
+    many.  A process killed inside ``store_arrays`` leaves its temporary
+    file behind (the rename never ran, so no entry is torn); the age guard
+    spares live writers of other processes, whose files are seconds old.
+    Errors are ignored: a racing writer may rename or unlink first."""
+    d = Path(cache_dir or default_cache_dir())
+    if not d.is_dir():
+        return 0
+    cutoff = time.time() - max_age_s
+    removed = 0
+    for tmp in d.glob("*.tmp"):
+        try:
+            if tmp.stat().st_mtime <= cutoff:
+                tmp.unlink()
+                removed += 1
+        except OSError:
+            continue
+    return removed
+
+
 def store_arrays(key: str, arrays: dict, header: dict,
                  cache_dir: Optional[str] = None,
                  compress: bool = True) -> Path:
@@ -67,6 +92,7 @@ def store_arrays(key: str, arrays: dict, header: dict,
     assert "header" not in arrays, "reserved entry name"
     d = Path(cache_dir or default_cache_dir())
     d.mkdir(parents=True, exist_ok=True)
+    gc_stale_tmp(cache_dir, max_age_s=86400.0)
     final = d / f"{key}.npz"
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
     save = np.savez_compressed if compress else np.savez
@@ -81,6 +107,93 @@ def store_arrays(key: str, arrays: dict, header: dict,
         if os.path.exists(tmp):
             os.unlink(tmp)
     return final
+
+
+def drop_arrays(key: str, cache_dir: Optional[str] = None) -> bool:
+    """Remove a cached entry (best effort); True if a file was deleted.
+    The campaign engine retires its slice checkpoints with it once the
+    whole-campaign entry is stored."""
+    try:
+        (Path(cache_dir or default_cache_dir()) / f"{key}.npz").unlink()
+        return True
+    except OSError:
+        return False
+
+
+# Lockless work claims (DESIGN.md §14).  Processes sharing one cache
+# directory dedupe work by claiming a content key before computing it:
+# ``O_CREAT | O_EXCL`` on ``<key>.claim`` is atomic, so one process wins
+# each key with no lock server.  A claim is advisory (the store stays
+# atomic whoever writes); a claim older than a TTL is presumed orphaned by
+# a dead process and may be stolen, and a rare double computation after a
+# steal is wasteful, never wrong.
+
+def claim_path(key: str, cache_dir: Optional[str] = None) -> Path:
+    return Path(cache_dir or default_cache_dir()) / f"{key}.claim"
+
+
+def try_claim(key: str, cache_dir: Optional[str] = None,
+              owner: str = "") -> bool:
+    """Atomically claim ``key`` for this process; False if already
+    claimed."""
+    d = Path(cache_dir or default_cache_dir())
+    d.mkdir(parents=True, exist_ok=True)
+    try:
+        fd = os.open(claim_path(key, cache_dir),
+                     os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+    except FileExistsError:
+        return False
+    with os.fdopen(fd, "w") as f:
+        f.write(json.dumps({"pid": os.getpid(), "owner": owner}))
+    return True
+
+
+def release_claim(key: str, cache_dir: Optional[str] = None) -> bool:
+    """Drop the claim on ``key`` (best effort); True if a file was
+    deleted."""
+    try:
+        claim_path(key, cache_dir).unlink()
+        return True
+    except OSError:
+        return False
+
+
+def claim_age_s(key: str, cache_dir: Optional[str] = None) -> Optional[float]:
+    """Seconds since ``key`` was claimed, or None when it is unclaimed."""
+    try:
+        return max(0.0, time.time() - claim_path(key, cache_dir).stat().st_mtime)
+    except OSError:
+        return None
+
+
+def steal_claim(key: str, ttl_s: float, cache_dir: Optional[str] = None,
+                owner: str = "") -> bool:
+    """Take over a claim older than ``ttl_s``: unlink, then claim again.
+    Two stealers may both unlink, but one wins the ``O_EXCL`` create."""
+    age = claim_age_s(key, cache_dir)
+    if age is None or age < ttl_s:
+        return False
+    release_claim(key, cache_dir)
+    return try_claim(key, cache_dir, owner=owner)
+
+
+def gc_stale_claims(cache_dir: Optional[str] = None,
+                    max_age_s: float = 3600.0) -> int:
+    """Remove ``*.claim`` files older than ``max_age_s`` (claims of
+    processes that died holding them); returns how many."""
+    d = Path(cache_dir or default_cache_dir())
+    if not d.is_dir():
+        return 0
+    cutoff = time.time() - max_age_s
+    removed = 0
+    for c in d.glob("*.claim"):
+        try:
+            if c.stat().st_mtime <= cutoff:
+                c.unlink()
+                removed += 1
+        except OSError:
+            continue
+    return removed
 
 
 def campaign_key(p: DeviceParams, grid, backend: str) -> str:

@@ -74,6 +74,10 @@ class WritePolicy:
     # one process corner (DESIGN.md §9): per-device D2D rows persist across
     # a cell's retries; sweep a multi-corner spec with write_verify_corners
     variation: Optional[VariationSpec] = None
+    # each round's launch writes its result into its own state block
+    # (DESIGN.md §14); the same float32 operations, so the schedule is
+    # bit-identical to the undonated one
+    donate: bool = False
 
     def resolved_pulse(self, kind: str, device=None) -> float:
         if self.pulse is not None:
@@ -185,7 +189,8 @@ def write_verify(kind: str, n_cells: int,
             voltages=(v,), pulse_widths=(pulse,), temperatures=(temp,),
             n_samples=int(remaining.size), dt=dt,
             seed=policy.seed * 1009 + rnd)
-        res = run_campaign(p, grid, use_cache=policy.use_cache, device=device)
+        res = run_campaign(p, grid, use_cache=policy.use_cache,
+                           donate=policy.donate, device=device)
         ct = res.crossing_time[0, 0]                  # (remaining,)
         ok = ct <= pulse
 
@@ -261,7 +266,8 @@ def _write_verify_variation(kind: str, n_cells: int, policy: WritePolicy,
             p, m0, torch.full((m,), v, dtype=torch.float32, device=dev), dt,
             n_steps, seed=seed_r, chunk=EARLY_EXIT_CHUNK,
             lane_params=kernel_rows[:, remaining],
-            sigma_lanes=rows.sigma[remaining], device=dev)
+            sigma_lanes=rows.sigma[remaining], donate=policy.donate,
+            device=dev)
         ct = res.crossing_time                          # (m,) [s]
         ok = ct <= pulse
 

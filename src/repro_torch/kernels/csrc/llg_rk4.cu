@@ -14,7 +14,8 @@
 //   PRODUCE    noise producer threads draw the Brown-field normals a batch
 //              of steps ahead into shared memory (chunked exit, C >= 8)
 //
-// Layout (as the Pallas kernel): state and out are (8, cells) float32,
+// Layout (as the Pallas kernel): state and out are (8, cells) float32
+// (out may be state itself: a donated launch, see the end of the kernel),
 // rows 0-2 = m1, 3-5 = m2 (zero for NSUB = 1), 6 = drive voltage,
 // 7 = first step (1-based, as float32) with n_z < -threshold, n_steps if
 // none; seeds (cells,) uint32; aux (2 or 5, cells) float32: row 0 = Brown
@@ -161,10 +162,9 @@ __device__ __forceinline__ V3 swap_pair(unsigned pair, V3 x) {
 template <bool THERMAL, bool VARIATION, int NSUB, int TPL, bool CLUSTER,
           bool PRODUCE>
 __global__ void __launch_bounds__(kGroup * TPL)
-    llg_rk4_kernel(const float* __restrict__ state,
-                   const uint32_t* __restrict__ seeds,
-                   const float* __restrict__ aux, float* __restrict__ out,
-                   int cells, int n_steps, int chunk, LLGConsts c) {
+    llg_rk4_kernel(const float* state, const uint32_t* __restrict__ seeds,
+                   const float* __restrict__ aux, float* out, int cells,
+                   int n_steps, int chunk, LLGConsts c) {
   static_assert(TPL == 1 || NSUB == 2, "two threads per lane need NSUB = 2");
   // The group's C blocks are consecutive (a cluster's blocks when
   // CLUSTER); lane-warp w of the group lives in block w % C.  With
@@ -184,12 +184,18 @@ __global__ void __launch_bounds__(kGroup * TPL)
 
   // m: this thread's sublattice (m1 for TPL = 1), o: the other one (m2 for
   // TPL = 1; rows 3-5 are zero for NSUB = 1 and unused)
+  // (producers read no state: with out == state, a lane thread may write
+  // its rows while a producer of its block has not started)
   const int ro = 3 * sub, rt = 3 - 3 * sub;
-  V3 m = {state[ro * cells + lane], state[(ro + 1) * cells + lane],
-          state[(ro + 2) * cells + lane]};
-  V3 o = {state[rt * cells + lane], state[(rt + 1) * cells + lane],
-          state[(rt + 2) * cells + lane]};
-  const float v = state[6 * cells + lane];
+  V3 m = {0.0f, 0.0f, 0.0f}, o = {0.0f, 0.0f, 0.0f};
+  float v = 0.0f;
+  if (!producer) {
+    m = {state[ro * cells + lane], state[(ro + 1) * cells + lane],
+         state[(ro + 2) * cells + lane]};
+    o = {state[rt * cells + lane], state[(rt + 1) * cells + lane],
+         state[(rt + 2) * cells + lane]};
+    v = state[6 * cells + lane];
+  }
   uint32_t seed = 0;
   float sigma = 0.0f;
   float budget = (float)n_steps;
@@ -362,6 +368,12 @@ __global__ void __launch_bounds__(kGroup * TPL)
   }
   if (producer) return;
 
+  // out may be state itself (a donated launch): each lane's rows are read
+  // above by that lane's threads only, so the one hazard is T = 2, where
+  // thread 2j writes rows 0-2 that thread 2j + 1 read as its partner's
+  // sublattice; the pair's barrier orders those reads before the writes
+  // (a launch with no step has met no shuffle)
+  if (TPL == 2) __syncwarp(pair);
   if (sub == 0) {
     out[lane] = m.x;
     out[cells + lane] = m.y;

@@ -9,6 +9,13 @@ reference's ``llg_rk4_pallas`` (minus ``interpret``):
 * a CUDA ``state`` launches the kernel on the current stream, without
   synchronising, or raises — there is no fallback.
 
+``out=`` names the ``(8, cells)`` float32 tensor the result is written
+into; ``out=state`` donates the state block to the launch (the torch
+meaning of the reference's ``donate_argnums=(0,)``): no second block is
+allocated, and the result is bit-identical to an undonated launch, since
+every thread reads its lane's rows before any thread of that lane writes
+them (``csrc/llg_rk4.cu``).
+
 ``llg_rk4_kernel.launches`` counts kernel launches (plain calls do not
 count) and ``llg_rk4_kernel.launch_layouts`` counts them by ``(cells,
 n_sublattices, C, T, P, V)``, V = 1 for the variation instance (per-lane
@@ -142,6 +149,26 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _check_out(out: torch.Tensor, state: torch.Tensor) -> None:
+    """ValueError unless ``out`` can receive the result of ``state``'s
+    launch: contiguous (8, cells) float32 on its device, and either
+    ``state`` itself or disjoint from it."""
+    if (out.device != state.device or out.dtype != torch.float32
+            or tuple(out.shape) != tuple(state.shape)
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {tuple(state.shape)} "
+                         f"float32 tensor on {state.device}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    if out.data_ptr() == state.data_ptr() and state.is_contiguous():
+        return
+    size = 4 * out.numel()
+    a0, b0 = out.data_ptr(), state.data_ptr()
+    span = state.element_size() * (
+        1 + sum((n - 1) * st for n, st in zip(state.shape, state.stride())))
+    if a0 < b0 + span and b0 < a0 + size:
+        raise ValueError("out overlaps state without being state itself")
+
+
 def _lane_row(x, cells: int, device) -> torch.Tensor:
     return torch.broadcast_to(
         torch.as_tensor(x, dtype=torch.float32, device=device),
@@ -160,10 +187,14 @@ def llg_rk4_kernel(
     chunk: int = 0,               # >0: early-exit chunk size (steps)
     lane_params=None,             # optional (3, cells) f32: alpha, B_k, g_scale
     layout=None,                  # optional (C, T[, P]); None = layout_rule
+    out: torch.Tensor | None = None,   # optional (8, cells) f32 result block
 ) -> torch.Tensor:
     """Advance the ``(8, cells)`` block ``n_steps`` RK4 steps (see
     ``ref.ref_llg_rk4`` for the contract).  ``layout`` is checked on every
-    device and only steers the CUDA launch: the plain version has none."""
+    device and only steers the CUDA launch: the plain version has none.
+    ``out`` receives the result (``out=state`` donates the state block);
+    it must be a contiguous ``(8, cells)`` float32 tensor on the state's
+    device that is ``state`` itself or shares no memory with it."""
     if seeds is not None and seeds.dtype != torch.int32:
         raise ValueError(f"seeds must hold int32 bit patterns (noise."
                          f"cell_seeds), got {seeds.dtype}")
@@ -175,11 +206,13 @@ def llg_rk4_kernel(
                 f"kernel with a chunk that is a multiple of "
                 f"{PRODUCER_BATCH}; got seeds={seeds is not None}, "
                 f"chunk={chunk}")
+    if out is not None:
+        _check_out(out, state)
     if state.device.type == "cpu":
         return ref_llg_rk4(state, p, dt, n_steps, switch_threshold,
                            thermal_sigma=thermal_sigma, seeds=seeds,
                            step_budget=step_budget, chunk=chunk,
-                           lane_params=lane_params)
+                           lane_params=lane_params, out=out)
     if state.device.type != "cuda":
         raise ValueError(f"llg_rk4_kernel: unsupported device {state.device}")
     if state.dtype != torch.float32 or state.dim() != 2 or state.shape[0] != ROWS:
@@ -219,7 +252,8 @@ def llg_rk4_kernel(
     if layout is None:
         layout = layout_rule(cells, p.n_sublattices, sm_count(dev.index),
                              takes_producers(seeds is not None, chunk))
-    out = torch.empty_like(state)
+    if out is None:
+        out = torch.empty_like(state)
     lib = _library()
     vals = kernel_consts(p, dt, switch_threshold)
     assert len(vals) == lib.llg_rk4_n_consts()

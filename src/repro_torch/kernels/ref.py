@@ -54,13 +54,16 @@ def ref_llg_rk4(
     step_budget=None,             # optional (cells,) f32 per-lane step budget
     chunk: int = 0,               # >0: early-exit chunk size (steps)
     lane_params=None,             # optional (3, cells) f32: alpha, B_k, g_scale
+    out: torch.Tensor | None = None,   # optional (8, cells) f32 result block
 ) -> torch.Tensor:
     """Advance the ``(8, cells)`` block ``n_steps`` RK4 steps; returns the
     block with rows 0-5 the final state, row 6 the drive and row 7 the
     first step (1-based, as float32) at which n_z < -threshold, or
     ``n_steps`` if none.  ``p.n_sublattices`` selects dual- (AFMTJ) or
     single-sublattice (MTJ) physics; the MTJ keeps rows 3-5 at zero and
-    takes the first triple of each step's six thermal normals."""
+    takes the first triple of each step's six thermal normals.  With
+    ``out`` (which may be ``state`` itself) the block is copied into it
+    once the whole horizon is done, and ``out`` is returned."""
     f32 = torch.float32
     dev = state.device
     cells = state.shape[1]
@@ -140,7 +143,8 @@ def ref_llg_rk4(
             for j in range(int(chunk)):
                 m, crossed = step(c * chunk + j, m, crossed, frozen)
     sub2 = m[:, 1, :].T if n_sub == 2 else torch.zeros_like(m[:, 0, :].T)
-    return torch.cat([m[:, 0, :].T, sub2, v[None], crossed[None]], dim=0)
+    res = torch.cat([m[:, 0, :].T, sub2, v[None], crossed[None]], dim=0)
+    return res if out is None else out.copy_(res)
 
 
 def ref_llg_write(

@@ -34,7 +34,8 @@ def _sources():
 TWINS = ("torch_model_accuracy_study", "torch_quickstart",
          "torch_imc_case_study", "torch_variation_study",
          "torch_retention_study", "torch_write_path_study",
-         "torch_fault_study", "torch_serving_study", "torch_train_lm")
+         "torch_fault_study", "torch_serving_study", "torch_train_lm",
+         "torch_analog_accuracy", "torch_array_mc_sim")
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
@@ -77,7 +78,9 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.data.pipeline", "repro_torch.runtime",
               "repro_torch.runtime.fault", "repro_torch.checkpoint",
               "repro_torch.checkpoint.checkpointer",
-              "repro_torch.launch.steps", "repro_torch.launch.train"):
+              "repro_torch.launch.steps", "repro_torch.launch.train",
+              "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+              "repro_torch.runtime.elastic"):
         assert m in mods, m
     code = (
         "import sys\n"
@@ -222,6 +225,13 @@ def _remainder_entry_points():
             "torch_fault_study").run(quick=True),
         "torch_serving_study.run": lambda: _twin(
             "torch_serving_study").run(quick=True),
+        "torch_analog_accuracy.run": lambda: _twin(
+            "torch_analog_accuracy").run(caps=dict(cap_k=8, cap_n=8,
+                                                   batch=1)),
+        "torch_array_mc_sim.run": lambda: _twin("torch_array_mc_sim").run(
+            rows=1, cols=4, n_steps=10, use_cache=False),
+        "torch_fault_study.resume_demo": lambda: _twin(
+            "torch_fault_study").resume_demo(),
     }
 
 
@@ -287,7 +297,8 @@ def _analog_entry_points():
     "ServeEngine_mamba", "serve.main",
     "torch_write_path_study.run", "torch_fault_study.run",
     "torch_serving_study.run", "train", "train.main",
-    "torch_train_lm.main"]))
+    "torch_train_lm.main", "torch_analog_accuracy.run",
+    "torch_array_mc_sim.run", "torch_fault_study.resume_demo"]))
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default is valid")

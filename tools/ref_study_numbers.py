@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
-"""Print the JAX reference's numbers of ``examples/variation_study.py`` and
-``examples/retention_study.py`` as JSON, unrounded, in the structure the
+"""Print the JAX reference's numbers of ``examples/variation_study.py``,
+``examples/retention_study.py``, ``examples/array_mc_sim.py`` and
+``examples/analog_accuracy.py`` as JSON, unrounded, in the structure the
 port's twins' ``run()`` returns (``examples/torch_variation_study.py``,
-``torch_retention_study.py``).  ``chip_smoke.py`` phase 7 holds the twins
-against them (``REF_VARIATION_STUDY``, ``REF_RETENTION_STUDY``).
+``torch_retention_study.py``, ``torch_array_mc_sim.py``,
+``torch_analog_accuracy.py``).  ``chip_smoke.py`` holds the twins against
+them (phase 7: ``REF_VARIATION_STUDY``, ``REF_RETENTION_STUDY``; phase 11:
+``REF_ARRAY_MC``, ``REF_ANALOG_ACCURACY``).
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/ref_study_numbers.py [--quick]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/ref_study_numbers.py \
+        [--quick] [--only variation retention array_mc analog_accuracy]
 
 Runs the reference on the CPU (Pallas in interpret mode, its default
 backend), each study as its example runs it; the retention study adds
-the flip counts of the disturb fit's rungs, which the hold's bounds use.
+the flip counts of the disturb fit's rungs, and the array study the
+standard deviation of the switched cells' latency and the latency
+quantiles' sample counts, which the holds' bounds use.
 """
 import argparse
 import dataclasses
@@ -24,6 +30,8 @@ sys.path.insert(0, str(ROOT / "examples"))
 
 import numpy as np  # noqa: E402
 
+import analog_accuracy  # noqa: E402
+import array_mc_sim  # noqa: E402
 import retention_study  # noqa: E402
 import variation_study  # noqa: E402
 from repro.campaign import CampaignGrid, run_campaign  # noqa: E402
@@ -126,12 +134,80 @@ def retention_numbers(quick: bool) -> dict:
     return out
 
 
+def array_mc_numbers() -> dict:
+    """``examples/array_mc_sim.py``'s numbers (its draws and its calls)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.campaign import run_ensemble
+    from repro.core import llg
+    from repro.core.device import thermal_theta0
+    from repro.imc.write_margin import wer_margined_pulse
+
+    ex = array_mc_sim
+    n = ex.ROWS * ex.COLS
+    k1, k2 = jax.random.split(jax.random.PRNGKey(0))
+    th0 = float(thermal_theta0(AFMTJ_PARAMS))
+    theta = jnp.abs(jax.random.normal(k1, (n,))) * th0 + 0.02
+    phi = jax.random.uniform(k2, (n,), maxval=2 * jnp.pi)
+    m0 = jax.vmap(lambda t, f: llg.initial_state(AFMTJ_PARAMS, t, f))(theta,
+                                                                      phi)
+    v = 1.0 - 0.15 * ((jnp.arange(n) // ex.COLS) / ex.ROWS)
+    res = run_ensemble(AFMTJ_PARAMS, m0, v, ex.DT, ex.N_STEPS, seed=0)
+    t_sw = np.asarray(res.crossing_time)
+    ok = t_sw[res.switched]
+    v_worst = float(jnp.min(v))
+    pulse = wer_margined_pulse("afmtj", v_write=round(v_worst, 2),
+                               wer_target=1e-2)
+    return dict(rows=ex.ROWS, cols=ex.COLS, n_steps=ex.N_STEPS,
+                switched=float(res.switched.mean()), n_switched=int(ok.size),
+                mean=float(ok.mean()), std=float(ok.std(ddof=1)),
+                p50=float(np.percentile(ok, 50)),
+                p99=float(np.percentile(ok, 99)), max=float(ok.max()),
+                wer=[float((t_sw > pl).mean())
+                     for pl in (250e-12, 300e-12, 350e-12, 400e-12)],
+                v_worst=v_worst, pulse=pulse)
+
+
+def analog_accuracy_numbers() -> dict:
+    """``examples/analog_accuracy.py``'s numbers, keyed as the twin's."""
+    from repro.configs.registry import ARCHS
+    from repro.imc.mapping import (accuracy_surface,
+                                   decode_projection_accuracy,
+                                   decode_projection_shapes)
+
+    ex = analog_accuracy
+    out = {}
+    for name in ex.SWEEP_ARCHS:
+        cfg = ARCHS[name]
+        k, n = decode_projection_shapes(cfg, ex.CAPS["cap_k"],
+                                        ex.CAPS["cap_n"])
+        surf = accuracy_surface(cfg, kind="afmtj", adc_bits=ex.ADC_BITS,
+                                tmrs=ex.TMRS, variation=ex.VARIATION,
+                                **ex.CAPS)
+        bnn = decode_projection_accuracy(cfg, kind="afmtj", mode="bnn",
+                                         **ex.CAPS)
+        out[name] = dict(
+            shape=[ex.CAPS["batch"], k, n],
+            surface={f"{bits}/{tmr}": [r.mse, r.nmse, r.cosine]
+                     for (bits, tmr), r in sorted(surf.items())},
+            bnn=[bnn.mse, bnn.nmse, bnn.cosine])
+    return out
+
+
+STUDIES = ("variation", "retention", "array_mc", "analog_accuracy")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--only", nargs="+", choices=STUDIES, default=STUDIES)
     args = ap.parse_args()
-    print(json.dumps({"variation": variation_numbers(args.quick),
-                      "retention": retention_numbers(args.quick)}))
+    make = {"variation": lambda: variation_numbers(args.quick),
+            "retention": lambda: retention_numbers(args.quick),
+            "array_mc": array_mc_numbers,
+            "analog_accuracy": analog_accuracy_numbers}
+    print(json.dumps({name: make[name]() for name in args.only}))
 
 
 if __name__ == "__main__":
