@@ -281,11 +281,39 @@ Phases (any failure raises and the script exits non-zero):
        ``MC_SIGMAS`` x sqrt(2) draw spreads of ``REF_ANALOG_ACCURACY``),
        and ``torch_fault_study``'s section 4 (resumed, bit-identical).
 
+12. Model scale-out, each part failing the run on a miss.  The ranks of
+    12c and 12d start first, as child processes, so their startup
+    overlaps 12a and 12b:
+    a. ``analog_matmul(arr, x, devices=["cuda:0"] * n)``, n = 2 and 4, at
+       qwen2-0.5b's five launch shapes (M = 128) and its unembed at M = 7,
+       against the unsplit call within the reference's own bound (rtol
+       1e-5, atol 1e-7; bit-equality printed), B3 launched once per
+       device entry; ``mvm_accuracy`` and ``decode_projection_accuracy``
+       with ``devices=`` against unsplit;
+    b. a 1-rank NCCL group and a (1, 1) mesh: 2 sharded steps of
+       qwen2-0.5b at phase 10a's shape (B 4 x S 4,096, 2 microbatches)
+       equal 2 unsharded steps bit for bit under deterministic algorithms
+       (loss, gradient norm, every parameter and moment); ms per step
+       beside phase 10a's;
+    c. (2, 1), (1, 2) and (2, 2) as gloo ranks sharing the card (float32
+       compute, 4 of its 24 layers at full width, B 4 x S 1,024 in 2
+       microbatches, steps 0-2 of lr 1e-2's warmup): each rank's
+       parameter and moment bytes equal the plan's;
+       loss, gradient norm, the first moment after step 1 and the
+       parameters after step 2 against the one-rank steps with the same
+       rows per microbatch (``SHARD_*`` bounds); each rank's startup and
+       the steps' ms printed;
+    d. the (2, 2) run saves at step 2 and takes step 3; the checkpoint is
+       restored on ``elastic_remesh``'s (1, 2) with 4 microbatches, every
+       payload shard equal bit for bit to the restored state gathered
+       over the mesh, and step 3 there against the one-rank step 3.
+
 Each kernel's launch counter is set to 0 before its main-path run (phases
 2-3 for the LLG kernel, with its launches by layout, 2 and 6 for the
 write kernel, 5b and 9b (per arch) for the analog kernels, both in phase
-7, the LLG and bit-line MAC kernels in phase 8, and the LLG, bit-line MAC
-and XNOR kernels in phase 11) and read after it (the
+7, the LLG and bit-line MAC kernels in phase 8, the LLG, bit-line MAC
+and XNOR kernels in phase 11, and the bit-line MAC in phase 12) and read
+after it (the
 analog wrappers count their mainloop launches under ``launches``, and the
 split-K reduce pass a split call adds under ``reduce_launches``); the
 second-to-last line is the per-kernel JSON record and the last line
@@ -3233,7 +3261,7 @@ DEVICE_PLAN_COUNTS = (3, 5, 6)
 CHILD_TIMEOUT_S = 300
 # phase 3's dense result, kept for phase 11 (filled by phase3)
 PHASE3_DENSE = {}
-# the device the child processes of 11c and 11d run on
+# the device the child processes of 11c, 11d, 12c and 12d run on
 CHILD_DEVICE = "cuda"
 
 CHILD_KILL = """
@@ -3739,6 +3767,688 @@ def phase11(torch, dev) -> dict:
                 xnor_launches=b4)
 
 
+# --- phase 12: model scale-out ---------------------------------------------
+
+# 12a: qwen2-0.5b's five launch shapes at M = 128 (phase 5) and its unembed
+# at an odd M, each split over the card named n times
+SPLIT_SHAPES = ([(QWEN_M, k, n, what) for k, n, what in QWEN_SHAPES]
+                + [(7, 896, 151936, "unembed, M = 7")])
+SPLIT_COUNTS = (2, 4)
+# the reference's own bound of a split call against the unsplit one
+# (tests/test_analog_pipeline.py::test_sharded_mvm_matches_single_device)
+SPLIT_RTOL = 1e-5
+SPLIT_ATOL = 1e-7
+# 12c / 12d: qwen2-0.5b at full width on gloo ranks sharing the card, the
+# global batch of phase 10a (4) in its 2 microbatches, train_4k's 4,096
+# positions cut to 1,024 for the phase's time.  float32 compute and the CPU
+# tests' schedule (steps 0, 1, 2 of lr 1e-2's warmup: lr 0, 1e-4, 2e-4):
+# in bfloat16 a data rank's weight gradient is rounded to bfloat16 on its
+# own rows' sum, not on the whole batch's, and AdamW's steps at phase 10's
+# lr 3e-3 would move an element whose tiny gradient changed sign by up to
+# 6e-3, so neither would test the sharding
+SHARD_SEQ = 1024
+# depth cut from 24 layers (never the width: d_model 896, vocabulary
+# 151,936): with all 24 the whole smoke took 1,206.8 s on the H100
+# machine, 208.1 s of it phase 12, past the 1,200 s it is given
+SHARD_LAYERS = 4
+SHARD_STEPS = 2
+SHARD_LR = 1e-2
+SHARD_TOTAL = 10
+SHARD_MESHES = ((2, 1), (1, 2), (2, 2))
+# agreement with the one-rank steps on the same shape and the same rows
+# per microbatch (a data rank of a (2, *) mesh takes 1 row of each of the
+# 2 microbatches, so its steps are held against 4 microbatches of 1 row;
+# the one-rank step's own gradient moves by 9.39e-4 in L2 between 2
+# microbatches of 2 rows and 4 of 1 at 24 layers on the card, 5.52e-3 at
+# 4, printed by the phase): the loss relative; the gradient norm relative
+# (wider than the CPU test's 1e-6: once a step has moved the parameters
+# apart by rounding the next norm follows: 3.16e-6 at step 3 at 24 layers,
+# 3.09e-5 at 4, in the first card runs); the first
+# moment after step 0 (lr 0, so m is 0.1 x the clipped gradient) as |d| /
+# |one rank| in L2 over the tree (gradient leaves that are zero in exact
+# arithmetic, as the k bias's, hold rounding noise on both sides, so no
+# bound is relative to one leaf); the parameters after step 2, the first
+# that moves them and from equal parameters, at
+# tests/test_torch_sharded_step.py's bounds (max |d|, share more than
+# 1e-6 relative apart).  After later steps, from parameters already apart
+# by rounding, AdamW flips the step of an element whose tiny gradient
+# changes sign (up to 2 lr): max |d| over the lr summed over the steps
+# and the share of elements more than 0.1 of the last lr apart (first card
+# runs after step 3: 2.503e-4 = 1.25 lr and 4.2e-7 of the elements at 24
+# layers, 2.555e-4 and 1.38e-6 at 4)
+SHARD_LOSS_RTOL = 1e-6
+SHARD_NORM_RTOL = 1e-4
+SHARD_MOMENT_RTOL = 1e-5
+SHARD_PARAM_ATOL = 1e-5
+SHARD_PARAM_SHARE = 0.01
+SHARD_FLIP_ATOL = 2.5
+SHARD_FLIP_SHARE = 1e-5
+
+
+def train_state(torch, cfg, shape, plan, dev, seed: int = 0):
+    """``launch.train.train``'s starting state: ``init_params`` from
+    ``seed`` on ``dev`` (this rank's shards with a plan), zero moments."""
+    from repro_torch._tree import tree_map
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    if plan is not None:
+        params = plan.shard(params)
+    params = tree_map(lambda p: p.requires_grad_(), params)
+    m, v = adamw_init(params, cfg.opt_state_dtype)
+    return params, m, v
+
+
+def shard_config():
+    """12c / 12d's model: qwen2-0.5b's published widths, ``SHARD_LAYERS``
+    layers, float32 compute."""
+    from repro_torch.configs.registry import get_arch
+
+    return dataclasses.replace(get_arch(TRAIN_ARCH), compute_dtype="float32",
+                               n_layers=SHARD_LAYERS)
+
+
+def run_steps(torch, cfg, shape, plan, state, steps, dev, lr=TRAIN_LR,
+              total=TRAIN_TOTAL):
+    """``steps`` of ``make_train_step`` (``train``'s step, sharded with a
+    plan; ``wsd_schedule(step, lr, total=total)``) from step ``state[3]``
+    on the pipeline's batches (this data rank's rows with a plan).
+    Returns the state and per step (loss, grad norm, ms: host clock around
+    the batch and the step, which ends in reading the metrics)."""
+    import numpy as np
+
+    from repro_torch.data import batch_at
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import data_config
+    from repro_torch.optim import AdamWConfig
+
+    params, m, v, step0 = state
+    step_fn = ST.make_train_step(cfg, shape, AdamWConfig(lr=lr),
+                                 total_steps=total, plan=plan)
+    dc = data_config(cfg, shape)
+    out = []
+    for s in range(step0, step0 + steps):
+        t0 = time.perf_counter()
+        b = batch_at(dc, s)
+        if plan is not None:
+            b = plan.shard_batch(shape, b)
+        b = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for k, a in b.items()}
+        params, m, v, _, met = step_fn(params, m, v, s, b)
+        out.append((float(met["loss"]), float(met["grad_norm"]),
+                    1e3 * (time.perf_counter() - t0)))
+    return (params, m, v, step0 + steps), out
+
+
+def phase12_split(torch, dev, smi: str) -> dict:
+    """12a: ``analog_matmul(arr, x, devices=["cuda:0"] * n)`` at every
+    shape of ``SPLIT_SHAPES`` against the unsplit call, B3 launched n times
+    per call; ``mvm_accuracy`` and ``decode_projection_accuracy`` with
+    ``devices=`` against unsplit."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.imc import analog_pipeline as ap
+    from repro_torch.imc.mapping import decode_projection_accuracy
+    from repro_torch.kernels.bitline_mac import bitline_mac_kernel
+
+    acfg = ap.AnalogConfig(adc_bits=6)
+    card = "cuda:0" if dev.type == "cuda" else str(dev)
+    rows = []
+
+    def timed_ms(fn):
+        """``time_ms`` of ``fn``, its launches left out of B3's counts
+        (they are timing repeats, not the path's calls)."""
+        counts = (bitline_mac_kernel.launches,
+                  bitline_mac_kernel.reduce_launches,
+                  bitline_mac_kernel.launch_shapes.copy())
+        ms = time_ms(torch, fn, 10)
+        (bitline_mac_kernel.launches, bitline_mac_kernel.reduce_launches,
+         bitline_mac_kernel.launch_shapes) = counts
+        return ms
+
+    log("phase 12a: the analog devices= split (B3 once per entry of a "
+        "device list naming the card n times; adc 6)")
+    for m, k, n, what in SPLIT_SHAPES:
+        x, w, _, _ = model_operands(torch, dev, m, k, n)
+        arr = ap.program_weights(w, "afmtj", acfg, device=dev)
+        y1 = ap.analog_matmul(arr, x)
+        ms1 = timed_ms(lambda: ap.analog_matmul(arr, x))
+        rec = {"shape": [m, k, n], "what": what, "unsplit_ms": ms1}
+        for cnt in SPLIT_COUNTS:
+            devices = [card] * cnt
+            l0 = bitline_mac_kernel.launches
+            r0 = bitline_mac_kernel.reduce_launches
+            yn = ap.analog_matmul(arr, x, devices=devices)
+            launches = bitline_mac_kernel.launches - l0
+            reduces = bitline_mac_kernel.reduce_launches - r0
+            tag = f"12a {what} ({m}x{k} @ {k}x{n}) over {cnt}"
+            d = hold_close(yn, y1, tag, SPLIT_RTOL, SPLIT_ATOL)
+            if launches != min(cnt, m):
+                raise AssertionError(f"{tag}: {launches} B3 launches")
+            msn = timed_ms(lambda: ap.analog_matmul(arr, x, devices=devices))
+            rec[str(cnt)] = dict(max_abs_err=d, bit_equal=bool(
+                torch.equal(yn, y1)), launches=launches,
+                reduce_launches=reduces, ms=msn)
+        log(f"  [{smi}] {what} {m}x{k} @ {k}x{n}: unsplit {ms1:.4f} ms; "
+            + "; ".join(f"over {c}: {rec[str(c)]['launches']} launches "
+                        f"(+{rec[str(c)]['reduce_launches']} reduce), "
+                        f"{rec[str(c)]['ms']:.4f} ms, max |d| "
+                        f"{rec[str(c)]['max_abs_err']:.3e}, bit-equal "
+                        f"{rec[str(c)]['bit_equal']}" for c in SPLIT_COUNTS))
+        rows.append(rec)
+        del arr, x, w, y1, yn
+
+    def fields(r):
+        return (r.mse, r.nmse, r.cosine, r.max_abs_err)
+
+    x, w, _, _ = model_operands(torch, dev, QWEN_M, 896, 4864)
+    reports = {"mvm_accuracy 128x896 @ 896x4864": (
+        ap.mvm_accuracy(w, x, cfg=acfg, device=dev),
+        ap.mvm_accuracy(w, x, cfg=acfg, device=dev, devices=[card] * 4)),
+        "decode_projection_accuracy qwen2-0.5b": (
+        decode_projection_accuracy(get_arch(TRAIN_ARCH), device=dev),
+        decode_projection_accuracy(get_arch(TRAIN_ARCH), device=dev,
+                                   devices=[card] * 4))}
+    for name, (r1, r4) in reports.items():
+        for a, b in zip(fields(r4), fields(r1)):
+            if not abs(a - b) <= SPLIT_ATOL + SPLIT_RTOL * abs(b):
+                raise AssertionError(f"12a {name}: split {fields(r4)} vs "
+                                     f"unsplit {fields(r1)}")
+        log(f"  {name} over 4: nmse {r4.nmse:.6e} (unsplit {r1.nmse:.6e}), "
+            f"cosine {r4.cosine:.8f} ({r1.cosine:.8f})")
+    return dict(shapes=rows, reports={k: dict(split=fields(a),
+                                              unsplit=fields(b))
+                                      for k, (b, a) in reports.items()})
+
+
+def phase12_nccl(torch, dev, smi: str, ms_10a: float) -> dict:
+    """12b: a 1-rank NCCL group and a (1, 1) mesh; 2 sharded steps of
+    qwen2-0.5b at phase 10a's shape equal 2 unsharded steps bit for bit
+    (loss, gradient norm, every parameter and moment) under deterministic
+    algorithms."""
+    import torch.distributed as dist
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import TRAIN_MICROBATCHES, get_arch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.sharded_step import ShardPlan
+
+    cfg = get_arch(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k_b4", "train", TRAIN_SEQ, TRAIN_BATCH,
+                        microbatches=TRAIN_MICROBATCHES[TRAIN_ARCH])
+    root = ROOT / "build" / "smoke-nccl"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    log(f"phase 12b: NCCL, 1 rank, (1, 1) mesh: {TRAIN_ARCH} at full width, "
+        f"B {TRAIN_BATCH} x S {TRAIN_SEQ} in {shape.microbatches} "
+        f"microbatches, 2 sharded steps against 2 unsharded from step "
+        f"{TRAIN_STEP0}, deterministic algorithms")
+    dist.init_process_group("nccl", init_method=f"file://{root / 'pg'}",
+                            rank=0, world_size=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        plan = ShardPlan(cfg, make_local_mesh(device_type="cuda"))
+        ref, ref_m = run_steps(torch, cfg, shape, None, (*train_state(
+            torch, cfg, shape, None, dev), TRAIN_STEP0), 2, dev)
+        got, got_m = run_steps(torch, cfg, shape, plan, (*train_state(
+            torch, cfg, shape, plan, dev), TRAIN_STEP0), 2, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    unequal = sum(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(ref[:3]), tree_leaves(got[:3])))
+    n_leaves = len(tree_leaves(ref[:3]))
+    same = [a[:2] == b[:2] for a, b in zip(ref_m, got_m)]
+    log(f"  [{smi}] losses {[r[0] for r in got_m]} (unsharded "
+        f"{[r[0] for r in ref_m]}), grad norms {[r[1] for r in got_m]}; "
+        f"{unequal} of {n_leaves} parameter / moment leaves differ")
+    log(f"  [{smi}] ms per step: sharded {[round(r[2], 1) for r in got_m]}, "
+        f"unsharded {[round(r[2], 1) for r in ref_m]} (phase 10a's mean "
+        f"{ms_10a:.1f}, deterministic algorithms off there)")
+    if unequal or not all(same):
+        raise AssertionError("the (1, 1) sharded step differs from the "
+                             "unsharded step")
+    del ref, got
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(sharded=got_m, unsharded=ref_m, leaves=n_leaves,
+                unequal=unequal)
+
+
+def leaf_gaps(torch, local, full_ref, plan, lr: float) -> dict:
+    """This rank's shards of a tree against the same regions of the
+    one-rank tensors, over the shards this rank is the first replica of
+    (so the ranks' counts add up to each element once): elements, max
+    |d|, the sums of d^2 and of the one-rank values squared, and the
+    elements more than 1e-6 relative, more than 1e-3 ``lr`` and more than
+    0.1 ``lr`` apart."""
+    from repro_torch._tree import dict_leaves
+    from repro_torch.launch.sharding import first_replica, shard_region
+
+    out = dict(n=0, max_abs=0.0, d2=0.0, ref2=0.0, off_rel=0, off_lr=0,
+               off_step=0)
+    for x, spec, p in zip(dict_leaves(local), dict_leaves(plan.specs),
+                          _leaf_paths(plan.specs)):
+        if not first_replica(spec, plan.coord):
+            continue
+        ref = full_ref[p][shard_region(tuple(full_ref[p].shape), spec,
+                                       plan.mesh, plan.coord)]
+        ref = ref.to(x.device, torch.float64)
+        d = (x.detach().double() - ref).abs()
+        out["n"] += x.numel()
+        out["max_abs"] = max(out["max_abs"], d.max().item())
+        out["d2"] += torch.sum(d * d).item()
+        out["ref2"] += torch.sum(ref * ref).item()
+        out["off_rel"] += int((d > 1e-6 * ref.abs()).sum())
+        out["off_lr"] += int((d > 1e-3 * lr).sum())
+        out["off_step"] += int((d > 0.1 * lr).sum())
+    return out
+
+
+def _leaf_paths(tree, pre=""):
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in
+                _leaf_paths(tree[k], f"{pre}{k}/")]
+    return [pre[:-1]]
+
+
+def shard_lr(step: int) -> float:
+    """The learning rate step ``step`` takes (``wsd_schedule``'s warmup)."""
+    return SHARD_LR * min(step / 100, 1.0)
+
+
+def sharded_child(root: str, rank: int, world: int, mesh_shape, job: dict):
+    """One gloo rank of phase 12c / 12d (a child process of
+    ``spawn_ranks``): its CUDA context, process group, mesh and a warm
+    collective on every mesh axis, then the ready file; after the
+    parent's go, the job; the rank's results in ``out<rank>.json``."""
+    t0 = time.perf_counter()
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch._tree import dict_leaves
+    from repro_torch.checkpoint import ShardedCheckpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.sharded_step import ShardPlan
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(job["device"])
+    root = Path(root)
+    dist.init_process_group("gloo", init_method=f"file://{root / 'pg'}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_local_mesh(mesh_shape[1], device_type=dev.type)
+        for name in mesh.mesh_dim_names:
+            dist.all_reduce(torch.ones(1, device=dev),
+                            group=mesh.get_group(name))
+        # first uses that cost seconds in a fresh process: the recompute's
+        # torch.utils.checkpoint imports torch._dynamo, and cuBLAS starts
+        import torch._dynamo  # noqa: F401
+        torch.ones(8, 8, device=dev) @ torch.ones(8, 8, device=dev)
+        out = {"rank": rank, "ready_s": time.perf_counter() - t0}
+        (root / f"ready{rank}").touch()
+        while not (root / "go").exists():
+            time.sleep(0.005)
+        t1 = time.perf_counter()
+        cfg = shard_config()
+        shape = ShapeConfig("shard", "train", SHARD_SEQ, TRAIN_BATCH,
+                            microbatches=job["micro"])
+        plan = ShardPlan(cfg, mesh)
+        ckpt = ShardedCheckpointer(Path(job["ckpt"]), plan)
+        refs = Path(job["refs"])
+        if job["kind"] == "resume":
+            like = {"params": M.abstract_params(cfg)}
+            like.update(m=like["params"], v=like["params"],
+                        step=torch.empty(()))
+            st = ckpt.restore(job["from"], like, device=dev)
+            state = (st["params"], st["m"], st["v"], int(st["step"]))
+            out["restored_unequal"] = restored_unequal(torch, ckpt, plan,
+                                                       st, job["from"])
+        else:
+            state = (*train_state(torch, cfg, shape, plan, dev), 0)
+        got = {"params": sum(t.nbytes for t in dict_leaves(state[0])),
+               "moments": sum(t.nbytes for t in dict_leaves(state[1])
+                              + dict_leaves(state[2]))}
+        if got != plan.state_bytes():
+            raise AssertionError(f"rank {rank}: {got} bytes, the plan "
+                                 f"says {plan.state_bytes()}")
+        out["bytes"] = got
+        out["steps"], out["gaps"] = [], {}
+        for s, what in job["compare"]:
+            state, met = run_steps(torch, cfg, shape, plan, state,
+                                   s - state[3], dev, SHARD_LR, SHARD_TOTAL)
+            out["steps"] += met
+            ref = torch.load(refs / f"mb{job['ref_micro']}-{what}{s}.pt",
+                             mmap=True, weights_only=True)
+            out["gaps"][f"{what} after step {s}"] = leaf_gaps(
+                torch, state[0] if what == "params" else state[1], ref,
+                plan, shard_lr(s - 1))
+            if s == job.get("save"):
+                ckpt.save(s, {"params": state[0], "m": state[1],
+                              "v": state[2], "step": torch.tensor(
+                                  s, dtype=torch.int32)}, blocking=True)
+        out["run_s"] = time.perf_counter() - t1
+        out["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                       if dev.type == "cuda" else 0)
+    finally:
+        dist.destroy_process_group()
+    (root / f"out{rank}.json").write_text(json.dumps(out))
+
+
+def restored_unequal(torch, ckpt, plan, state, step: int) -> int:
+    """Shards of a checkpoint's payloads that differ anywhere from the
+    same region of the restored state, gathered over this mesh."""
+    import numpy as np
+
+    from repro_torch._tree import dict_leaves, tree_leaves_with_paths
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.sharding import shard_region, spec_entry
+
+    d = ckpt.dir / f"step_{step}"
+    man = json.loads((d / "manifest.json").read_text())
+    old = MeshShape(tuple(man["mesh"]["axis_names"]),
+                    tuple(man["mesh"]["shape"]))
+    payloads = [torch.load(d / f"host{r}.pt", mmap=True, weights_only=True)
+                for r in range(man["host_count"])]
+    specs = {e["path"]: tuple(spec_entry(a) for a in e["spec"])
+             for e in man["leaves"]}
+    unequal = 0
+    for (path, x), spec in zip(tree_leaves_with_paths(state),
+                               dict_leaves(ckpt.specs_of(state))):
+        p = "/".join(str(k) for k in path)
+        full = plan._gather(x, spec)
+        for r, payload in enumerate(payloads):
+            if p in payload:
+                coord = dict(zip(old.axis_names,
+                                 (int(i) for i in np.unravel_index(
+                                     r, old.shape))))
+                part = full[shard_region(tuple(full.shape), specs[p], old,
+                                         coord)]
+                unequal += not torch.equal(part.cpu(), payload[p])
+    return unequal
+
+
+CHILD_SHARDED = (
+    "import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+    "chip_smoke.sharded_child(sys.argv[2], int(sys.argv[3]), "
+    "int(sys.argv[4]), json.loads(sys.argv[5]), json.loads(sys.argv[6]))")
+
+
+def spawn_ranks(mesh, root: Path, job: dict) -> dict:
+    """Start the ranks of ``mesh`` as child processes on the one card
+    (gloo); they wait at a file barrier once ready (``release_ranks``)."""
+    world = mesh[0] * mesh[1]
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CHILD_SHARDED, str(ROOT), str(root), str(r),
+         str(world), json.dumps(list(mesh)), json.dumps(job)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    return dict(procs=procs, root=root, world=world, mesh=mesh, job=job,
+                t0=time.perf_counter())
+
+
+def kill_ranks(batch: dict) -> None:
+    for pr in batch["procs"]:
+        if pr.poll() is None:
+            pr.kill()
+            pr.wait()
+
+
+def release_ranks(batch: dict) -> dict:
+    """Wait until every rank of ``batch`` is ready, release them together,
+    wait for them; their outputs, the time from the spawn to the release
+    and the wall from the release.  A rank that fails fails the phase."""
+    root, world, procs = batch["root"], batch["world"], batch["procs"]
+    try:
+        deadline = time.time() + CHILD_TIMEOUT_S
+        while not all((root / f"ready{r}").exists() for r in range(world)):
+            for pr in procs:
+                if pr.poll() is not None:
+                    raise AssertionError(f"a rank died: "
+                                         f"{pr.communicate()[1][-3000:]}")
+            if time.time() > deadline:
+                raise AssertionError("the ranks never became ready")
+            time.sleep(0.01)
+        startup = time.perf_counter() - batch["t0"]
+        t1 = time.perf_counter()
+        (root / "go").touch()
+        errs = [pr.communicate(timeout=CHILD_TIMEOUT_S)[1] for pr in procs]
+    finally:
+        kill_ranks(batch)
+    if any(pr.returncode != 0 for pr in procs):
+        raise AssertionError(f"a rank failed: {[e[-3000:] for e in errs]}")
+    outs = [json.loads((root / f"out{r}.json").read_text())
+            for r in range(world)]
+    return dict(outs=outs, startup_s=startup,
+                wall_s=time.perf_counter() - t1)
+
+
+def hold_sharded(tag: str, run: dict, ref_steps: list, first: int,
+                 smi: str) -> dict:
+    """The mesh's steps (rank 0's; every rank reports the same metrics)
+    against the one-rank steps from index ``first``, and its first moments
+    / parameters against the one-rank ones at each compared step, all
+    ranks' counts summed."""
+    outs = run["outs"]
+    steps = outs[0]["steps"]
+    ref = ref_steps[first:first + len(steps)]
+    loss_gap = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(steps, ref))
+    norm_gap = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(steps, ref))
+    gaps, ok = {}, loss_gap <= SHARD_LOSS_RTOL and norm_gap <= SHARD_NORM_RTOL
+    for what in outs[0]["gaps"]:
+        g = [o["gaps"][what] for o in outs]
+        n = sum(x["n"] for x in g)
+        gaps[what] = dict(
+            n=n, max_abs=max(x["max_abs"] for x in g),
+            rel_l2=math.sqrt(sum(x["d2"] for x in g)
+                             / sum(x["ref2"] for x in g)),
+            off_rel_share=sum(x["off_rel"] for x in g) / n,
+            off_lr_share=sum(x["off_lr"] for x in g) / n,
+            off_step_share=sum(x["off_step"] for x in g) / n)
+        step = int(what.rsplit(" ", 1)[1])
+        if what.startswith("m "):
+            ok &= gaps[what]["rel_l2"] <= SHARD_MOMENT_RTOL
+        elif step == SHARD_STEPS and first == 0:
+            ok &= (gaps[what]["max_abs"] <= SHARD_PARAM_ATOL
+                   and gaps[what]["off_rel_share"] <= SHARD_PARAM_SHARE)
+        else:
+            ok &= (gaps[what]["max_abs"]
+                   <= SHARD_FLIP_ATOL * sum(map(shard_lr, range(step)))
+                   and gaps[what]["off_step_share"] <= SHARD_FLIP_SHARE)
+    ready = ", ".join(f"{o['ready_s']:.2f}" for o in outs)
+    log(f"  [{smi}] {tag}: each rank ready (torch, CUDA context, process "
+        f"group, a warm collective per axis) {ready} s after its start; "
+        f"{run['wall_s']:.1f} s from the release; ms per step (rank 0) "
+        f"{[round(x[2], 1) for x in steps]}; loss {[x[0] for x in steps]} "
+        f"(rel gap {loss_gap:.2e}), grad norm rel gap {norm_gap:.2e}; "
+        f"bytes per rank {outs[0]['bytes']}; peak "
+        f"{max(o['max_memory_allocated'] for o in outs) / 2**30:.2f} GiB")
+    for what, g in gaps.items():
+        log(f"    {what}: max |d| {g['max_abs']:.3e}, |d| / |one rank| "
+            f"{g['rel_l2']:.2e} (L2 over the tree), of {g['n']} elements "
+            f"{g['off_rel_share']:.2e} more than 1e-6 relative apart, "
+            f"{g['off_lr_share']:.2e} more than 1e-3 lr, "
+            f"{g['off_step_share']:.2e} more than 0.1 lr")
+    if not ok:
+        raise AssertionError(f"{tag}: the sharded steps disagree with the "
+                             "one-rank steps")
+    return dict(steps=steps, loss_rel=loss_gap, grad_norm_rel=norm_gap,
+                gaps=gaps, released_after_s=run["startup_s"],
+                ready_s=[o["ready_s"] for o in outs],
+                run_s=[o["run_s"] for o in outs], wall_s=run["wall_s"],
+                bytes=outs[0]["bytes"],
+                max_memory_allocated=[o["max_memory_allocated"]
+                                      for o in outs])
+
+
+def spawn_phase12_ranks(root: Path) -> dict:
+    """Every rank of 12c / 12d, started together at the phase's start so
+    their startup overlaps 12a and 12b: (2, 1), (1, 2), (2, 2) (saving at
+    step ``SHARD_STEPS`` and taking one more) and the (2, 2) checkpoint's
+    resume on the elastic plan's mesh with its microbatches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.sharded_step import elastic_remesh
+
+    s2, s3 = SHARD_STEPS, SHARD_STEPS + 1
+    base = dict(micro=2, ckpt=str(root / "ckpt"), refs=str(root / "refs"),
+                device=CHILD_DEVICE, kind="train",
+                compare=[(1, "m"), (s2, "params")])
+    new_mesh, new_shape = elastic_remesh(
+        2, MeshShape(("data", "model"), (2, 2)),
+        ShapeConfig("shard", "train", SHARD_SEQ, TRAIN_BATCH,
+                    microbatches=2))
+    # each mesh against the one-rank step with its rows per microbatch
+    jobs = {str(m): (m, dict(base, ref_micro=2 * m[0]))
+            for m in SHARD_MESHES}
+    jobs[str((2, 2))][1].update(compare=[(1, "m"), (s2, "params"),
+                                         (s3, "params")], save=s2)
+    jobs["resume"] = (new_mesh.shape, dict(
+        base, kind="resume", micro=new_shape.microbatches,
+        ref_micro=new_shape.microbatches * new_mesh.shape[0],
+        compare=[(s3, "params")], **{"from": s2}))
+    batches = {}
+    try:
+        for name, (mesh, job) in jobs.items():
+            batches[name] = spawn_ranks(mesh, root / f"ranks-{len(batches)}",
+                                        job)
+    except BaseException:
+        for b in batches.values():
+            kill_ranks(b)
+        raise
+    return batches
+
+
+def phase12_meshes(torch, dev, smi: str, root: Path, batches: dict) -> dict:
+    """12c / 12d: the one-rank steps on the shape in 2 microbatches of 2
+    rows and in 4 of 1 (a data rank's rows per microbatch), their first
+    moments after step 1 and parameters after steps 2 and 3 saved for the
+    ranks; then (2, 1), (1, 2) and (2, 2) released in turn, each held
+    against the one-rank steps with its own rows per microbatch; then the
+    resume of the (2, 2) run's checkpoint on the elastic plan's mesh."""
+    from repro_torch._tree import dict_leaves, tree_leaves
+    from repro_torch.configs.base import ShapeConfig
+
+    cfg = shard_config()
+    refs = root / "refs"
+    refs.mkdir(parents=True)
+    s2, s3 = SHARD_STEPS, SHARD_STEPS + 1
+    log(f"phase 12c: {TRAIN_ARCH} at full width, depth cut ({cfg.n_layers} "
+        f"layers of 24, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.compute_dtype} "
+        f"compute) on gloo ranks sharing the card, B {TRAIN_BATCH} x S "
+        f"{SHARD_SEQ} in 2 microbatches, steps 0-{s2} of lr {SHARD_LR}'s "
+        f"warmup; meshes {SHARD_MESHES}")
+    t0 = time.perf_counter()
+    ref_steps, m1 = {}, {}
+    for micro in (2, 4):
+        shape = ShapeConfig("shard", "train", SHARD_SEQ, TRAIN_BATCH,
+                            microbatches=micro)
+        state = (*train_state(torch, cfg, shape, None, dev), 0)
+        ref_steps[micro] = []
+        for s, what in ((1, "m"), (s2, "params"), (s3, "params")):
+            state, met = run_steps(torch, cfg, shape, None, state,
+                                   s - state[3], dev, SHARD_LR, SHARD_TOTAL)
+            ref_steps[micro] += met
+            tree = state[0] if what == "params" else state[1]
+            if what == "m":
+                m1[micro] = [t.clone() for t in tree_leaves(tree)]
+            torch.save(dict(zip(_leaf_paths(tree), (
+                t.detach().cpu() for t in dict_leaves(tree)))),
+                refs / f"mb{micro}-{what}{s}.pt")
+        del state
+    own = math.sqrt(sum(torch.sum((a.double() - b.double()) ** 2).item()
+                        for a, b in zip(m1[4], m1[2]))
+                    / sum(torch.sum(b.double() ** 2).item() for b in m1[2]))
+    del m1
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    for micro, steps in ref_steps.items():
+        log(f"  [{smi}] one rank, {micro} microbatches: losses "
+            f"{[x[0] for x in steps]}, grad norms {[x[1] for x in steps]}, "
+            f"ms per step {[round(x[2], 1) for x in steps]}")
+    log(f"  the one-rank step's own gap, 4 microbatches of 1 row against 2 "
+        f"of 2: first moment after step 1 |d| / |m| {own:.2e} (L2); "
+        f"{ref_s:.1f} s with the saved tensors")
+    meshes = {}
+    for mesh in SHARD_MESHES:
+        batch = batches[str(mesh)]
+        tag = (f"12c mesh {mesh} (against {batch['job']['ref_micro']} "
+               f"microbatches)" + (f"; 12d: saves at step {s2}"
+                                   if mesh == (2, 2) else ""))
+        meshes[str(mesh)] = hold_sharded(
+            tag, release_ranks(batch), ref_steps[batch["job"]["ref_micro"]],
+            0, smi)
+    resume = batches["resume"]
+    run = release_ranks(resume)
+    unequal = [o["restored_unequal"] for o in run["outs"]]
+    log(f"phase 12d: the (2, 2) checkpoint of step {s2} restored on the "
+        f"elastic plan's mesh {tuple(resume['mesh'])} (microbatches 2 -> "
+        f"{resume['job']['micro']}): {unequal} payload shards differ from "
+        f"the restored state")
+    if any(unequal):
+        raise AssertionError("the restored state differs from the saved one")
+    held = hold_sharded(f"12d mesh {tuple(resume['mesh'])}, step {s3}", run,
+                        ref_steps[resume["job"]["ref_micro"]], s2, smi)
+    return dict(one_rank=ref_steps, one_rank_s=ref_s,
+                one_rank_microbatch_gap=own, meshes=meshes,
+                resume=dict(held, mesh=list(resume["mesh"]),
+                            restored_unequal=unequal))
+
+
+def phase12(torch, dev, smi: str, ms_10a: float) -> dict:
+    """Phase 12, model scale-out: the ranks of 12c / 12d started first (so
+    12a's times are taken while they start), the analog split (12a), NCCL
+    on one rank (12b), gloo ranks on the card (12c) and the checkpoint's
+    remesh (12d); B3's launches counted over the phase."""
+    from repro_torch.kernels import analog_mac
+    from repro_torch.kernels.bitline_mac import bitline_mac_kernel
+
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "smoke-shard"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    batches = spawn_phase12_ranks(root)
+    analog_mac.reset_counts(bitline_mac_kernel)
+    walls = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        r = fn()
+        walls[name] = time.perf_counter() - t
+        return r
+
+    try:
+        split = timed("12a", lambda: phase12_split(torch, dev, smi))
+        b3, b3_reduce = (bitline_mac_kernel.launches,
+                         bitline_mac_kernel.reduce_launches)
+        nccl = timed("12b", lambda: phase12_nccl(torch, dev, smi, ms_10a))
+        meshes = timed("12c-d", lambda: phase12_meshes(torch, dev, smi, root,
+                                                       batches))
+    finally:
+        for b in batches.values():
+            kill_ranks(b)
+    shutil.rmtree(root, ignore_errors=True)
+    total = time.perf_counter() - t0
+    log(f"  phase 12 total: {total:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + f"); bit-line MAC launches {b3} (+{b3_reduce} reduce passes)")
+    if b3 <= 0:
+        raise AssertionError("phase 12 never launched the bit-line MAC")
+    return dict(split=split, nccl=nccl, meshes=meshes, walls=walls,
+                total_s=total, bitline_launches=b3,
+                bitline_reduce_launches=b3_reduce)
+
+
 def kernel_counts() -> dict:
     from repro_torch.kernels.bitline_mac import bitline_mac_kernel
     from repro_torch.kernels.fake_analog import fake_analog_kernel
@@ -3867,6 +4577,7 @@ def main() -> int:
     families = phase9(torch, dev, family_shapes)
     training = phase10(torch, dev, smi)
     scale = phase11(torch, dev)
+    sharded = phase12(torch, dev, smi, training["full_width"]["ms_mean"])
 
     record = {"kernels": [{
         "name": "llg_rk4",
@@ -3978,6 +4689,11 @@ def main() -> int:
                if name == "bitline_mac" else
                {"launches_phase11": scale["xnor_launches"]}
                if name == "xnor_gemm" else {}),
+            # phase 12a's devices= split (B3 once per device entry)
+            **({"launches_phase12": sharded["bitline_launches"],
+                "reduce_launches_phase12":
+                    sharded["bitline_reduce_launches"]}
+               if name == "bitline_mac" else {}),
         })
     w = write[2]                # the quickstart's voltages, AFMTJ
     record["kernels"].append({
@@ -4028,6 +4744,7 @@ def main() -> int:
     record["training"] = training
     record["phase11"] = {k: v for k, v in scale.items()
                          if k not in ("launch_layouts",)}
+    record["phase12"] = sharded
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps(record), flush=True)

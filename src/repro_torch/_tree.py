@@ -1,7 +1,9 @@
 """Nested-dict parameter trees: leaves in ``jax.tree_util``'s order.
 
 The port's parameters, moments and checkpoints are nested dicts (with
-lists or tuples where a caller uses them) of tensors.  ``jax.tree_util``
+lists or tuples where a caller uses them) of tensors.  ``dict_leaves`` /
+``map_dict`` walk dicts only, so trees whose leaves are tuples (logical
+axes, sharding specs) keep them whole.  ``jax.tree_util``
 flattens a dict in *sorted* key order whatever its insertion order, and
 the reference's global gradient norm and checkpoint manifests follow that
 order, so the port flattens the same way.
@@ -62,3 +64,20 @@ def tree_map(fn, tree: Any, *rest: Any) -> Any:
     if any(len(o) != len(leaves) for o in others):
         raise ValueError("trees differ in structure")
     return tree_unflatten(tree, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def dict_leaves(tree: Any) -> list:
+    """Leaves of a nested-dict tree in sorted-key order (``tree_leaves``'
+    order for the port's parameter trees), tuples kept whole."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in dict_leaves(tree[k])]
+    return [tree]
+
+
+def map_dict(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of a nested-dict tree (tuples kept whole) and
+    the same-structured ``rest``."""
+    if isinstance(tree, dict):
+        return {k: map_dict(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)

@@ -1,2 +1,3 @@
 """Checkpointing (port of ``repro.checkpoint``)."""
-from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: F401
+from repro_torch.checkpoint.checkpointer import (  # noqa: F401
+    Checkpointer, ShardedCheckpointer)

@@ -5,7 +5,7 @@ config built here and one built there describe the same model.
 ``param_count`` / ``active_param_count`` count every arch, as the
 closed-form decode mapping (``imc.mapping``) needs.  ``ShapeConfig`` /
 ``SHAPES`` are the reference's workload shapes (sequence, global batch,
-microbatches).
+microbatches); ``shape_for`` picks one, with the microbatches overridden.
 """
 from __future__ import annotations
 
@@ -139,3 +139,13 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
 }
+
+
+def shape_for(arch: ArchConfig, shape_name: str,
+              microbatches: Optional[int] = None) -> ShapeConfig:
+    """``SHAPES[shape_name]``, with ``microbatches`` replaced when given
+    (``arch`` is unused, as in the reference)."""
+    s = SHAPES[shape_name]
+    if microbatches is not None:
+        s = dataclasses.replace(s, microbatches=microbatches)
+    return s

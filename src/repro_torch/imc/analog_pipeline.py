@@ -16,8 +16,18 @@ Signal chain, as in the reference:
      (``decode_gain``), shared with the fused fake path.
 
 ``binary_matmul`` is the 1-bit path through ``kernels.xnor_gemm`` with
-per-column |w| and scalar |x| scales.  One device only: the reference's
-``shard_map`` batch sharding (``devices=``) waits for ROADMAP A12.
+per-column |w| and scalar |x| scales.
+
+``analog_matmul(..., devices=)`` splits the batch rows over a device list,
+as the reference's ``shard_map`` does (weights resident on every device,
+activations split): the rows are zero-padded to a multiple of the device
+count and each device's share runs through one bit-line MAC launch.  The
+ADC full scale and the operands come from the whole batch
+(``kernel_operands`` before the split), so only the launches are split.
+A list may name one device several times (one launch per entry); an int
+n means the first n CUDA devices.  ``mvm_accuracy`` and
+``imc.mapping.decode_projection_accuracy`` pass ``devices`` on; the bnn
+mode ignores it, as the reference's does.
 
 Scalar arithmetic follows the reference's float32 / float64 steps: host
 scalars are Python floats (float64), tensors float32, and divisions by a
@@ -273,10 +283,42 @@ def kernel_operands(arr: ProgrammedArray, x
     return v, i_max, x_scale
 
 
-def analog_matmul(arr: ProgrammedArray, x) -> torch.Tensor:
+def split_devices(m: int, devices) -> list:
+    """The devices an ``m``-row batch splits over: a list as given (one
+    device named twice counts twice), an int n the first n CUDA devices;
+    at most ``m`` of them and at least one (the reference's
+    ``_usable_devices``)."""
+    if isinstance(devices, int):
+        resolve_device("cuda")
+        n = min(devices, torch.cuda.device_count())
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devs = [torch.device(d) for d in devices]
+    return devs[:max(min(len(devs), m), 1)]
+
+
+def _mvm_split(v: torch.Tensor, g: torch.Tensor, devs: list, adc_bits: int,
+               i_max: float) -> torch.Tensor:
+    """V @ G through the bit-line MAC, the rows of ``v`` zero-padded to a
+    multiple of ``len(devs)`` and split in order, one launch per device on
+    its share; the result on ``v``'s device, padding dropped."""
+    m, n = v.shape[0], len(devs)
+    pad = -m % n
+    if pad:
+        v = torch.cat([v, v.new_zeros((pad, v.shape[1]))])
+    per = v.shape[0] // n
+    outs = [bitline_mac_kernel(v[i * per:(i + 1) * per].to(d), g.to(d),
+                               adc_bits, i_max)
+            for i, d in enumerate(devs)]
+    return torch.cat([o.to(v.device) for o in outs])[:m]
+
+
+def analog_matmul(arr: ProgrammedArray, x, devices=None) -> torch.Tensor:
     """``x @ w`` through the programmed crossbar (steps 3-4), on the
     array's device; the ADC output decoded back to weight x activation
     units by the programming scales and the mean IR calibration.
+    ``devices`` (a device list, or an int n: the first n CUDA devices)
+    splits the batch rows over them (``split_devices``); None runs one
+    launch on the array's device.
 
     The decode is one float32 multiply by the float64 gain rounded once
     (the reference multiplies and divides by two float32-rounded factors):
@@ -286,7 +328,11 @@ def analog_matmul(arr: ProgrammedArray, x) -> torch.Tensor:
         tuple(x.shape), tuple(arr.g_diff.shape))
     cfg = arr.cfg
     v, i_max, x_scale = kernel_operands(arr, x)
-    i_out = bitline_mac_kernel(v, arr.g_diff, cfg.adc_bits, i_max)
+    if devices is None:
+        i_out = bitline_mac_kernel(v, arr.g_diff, cfg.adc_bits, i_max)
+    else:
+        i_out = _mvm_split(v, arr.g_diff, split_devices(v.shape[0], devices),
+                           cfg.adc_bits, i_max)
     return i_out * decode_gain(x_scale, arr.w_scale, cfg.v_read, arr.g_fs,
                                arr.att_mean)
 
@@ -342,16 +388,18 @@ def _report(y, y_ref, *, arch, kind, mode, cfg: AnalogConfig, tmr: float
 
 
 def mvm_accuracy(w, x, kind: str = "afmtj", cfg: AnalogConfig = AnalogConfig(),
-                 mode: str = "analog", arch: str = "", device=None
-                 ) -> AccuracyReport:
-    """Program ``w``, run ``x`` through the kernel path, score vs float32."""
+                 mode: str = "analog", arch: str = "", device=None,
+                 devices=None) -> AccuracyReport:
+    """Program ``w``, run ``x`` through the kernel path (the analog mode's
+    batch split over ``devices``, as ``analog_matmul``), score vs
+    float32."""
     dev_t = resolve_device(device)
     w = _as_f32(w, dev_t)
     x = _as_f32(x, dev_t)
     y_ref = x @ w
     if mode == "analog":
         arr = program_weights(w, kind, cfg, device=dev_t)
-        y = analog_matmul(arr, x)
+        y = analog_matmul(arr, x, devices=devices)
         tmr = arr.dev.tmr
     elif mode == "bnn":
         y = binary_matmul(x, w, device=dev_t)

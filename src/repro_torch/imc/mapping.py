@@ -213,9 +213,11 @@ def decode_projection_accuracy(
     cap_n: int = 512,
     seed: Optional[int] = None,
     device=None,
+    devices=None,
 ):
     """One decode-step projection of ``cfg`` through the analog path
-    (``seed=None`` derives the draw from the arch name)."""
+    (``seed=None`` derives the draw from the arch name; ``devices`` splits
+    the batch, as ``analog_pipeline.analog_matmul``)."""
     from repro_torch.imc.analog_pipeline import AnalogConfig, mvm_accuracy
 
     dev = resolve_device(device)
@@ -225,7 +227,7 @@ def decode_projection_accuracy(
         seed = zlib.crc32(cfg.name.encode()) & 0x7FFFFFFF
     w, x = projection_draws(seed, k, n, batch)
     return mvm_accuracy(w, x, kind=kind, cfg=analog_cfg, mode=mode,
-                        arch=cfg.name, device=dev)
+                        arch=cfg.name, device=dev, devices=devices)
 
 
 def accuracy_surface(

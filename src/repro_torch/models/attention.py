@@ -20,6 +20,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (ParamSpec, apply_rope, linear, rms_norm,
                                        softcap)
+from repro_torch.models.sharding_hooks import constrain
 
 _F32 = torch.float32
 # above this query length the chunked (flash-style) path is used
@@ -217,10 +218,13 @@ def decode_self_attention(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     ck, cv = cache["k"], cache["v"]
     ck[:, pos] = k[:, 0]
     cv[:, pos] = v[:, 0]
+    ck = constrain(ck, "cache_kv")
+    cv = constrain(cv, "cache_kv")
     Skv = ck.shape[1]
     g = h // kvh
     qg = q.reshape(B, 1, kvh, g, hd)
     s = torch.einsum("bskgd,btkd->bkgst", qg, ck).to(_F32)
+    s = constrain(s, "decode_scores")
     s = _scale_scores(s, hd)
     s = softcap(s, cfg.attn.logit_softcap)
     ki = torch.arange(Skv, device=dev)[None, :]

@@ -2,8 +2,11 @@
 interception hook, norms, activations and rotary embeddings (port of
 ``repro.models.common``).
 
-The reference's activation-sharding hook (``models.sharding_hooks``) is a
-no-op on one device and has no counterpart here.
+Parameter handling is spec-first, as the reference's: ``init_params``
+draws concrete tensors, ``abstract_params`` gives the same tree on the
+meta device (shapes and dtypes, no storage) and ``logical_axes`` the tree
+of each spec's logical axis names, which ``launch.sharding`` maps to mesh
+axes.
 """
 from __future__ import annotations
 
@@ -55,6 +58,19 @@ def init_params(specs: Any, cfg: ArchConfig, generator: torch.Generator,
         return (z * scale).to(dtype)
 
     return tree_map(mk, specs)
+
+
+def abstract_params(specs: Any, cfg: ArchConfig) -> Any:
+    """The parameter tree on ``torch.device("meta")``: each spec's shape in
+    its dtype (``spec.dtype or cfg.param_dtype``)."""
+    return tree_map(lambda s: torch.empty(
+        s.shape, dtype=DTYPES[s.dtype or cfg.param_dtype], device="meta"),
+        specs)
+
+
+def logical_axes(specs: Any) -> Any:
+    """The tree of each spec's logical axis names (one tuple per leaf)."""
+    return tree_map(lambda s: s.axes, specs)
 
 
 # --------------------------------------------------------------------------

@@ -40,8 +40,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (DTYPES, ParamSpec,
-                                       init_params as _init, linear, rms_norm,
+                                       abstract_params as _abstract,
+                                       init_params as _init, linear,
+                                       logical_axes as _axes, rms_norm,
                                        softcap)
+from repro_torch.models.sharding_hooks import constrain, gather
 
 _F32 = torch.float32
 LOSS_CHUNK = 1024
@@ -108,6 +111,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device):
     return _init(param_specs(cfg), cfg, generator, device)
 
 
+def abstract_params(cfg: ArchConfig):
+    """The parameter tree on the meta device (shapes and dtypes)."""
+    return _abstract(param_specs(cfg), cfg)
+
+
+def logical_axes(cfg: ArchConfig):
+    """The parameter tree's logical axis names, one tuple per leaf."""
+    return _axes(param_specs(cfg))
+
+
 def params_from_reference(tree: Any, device=None) -> Any:
     """The reference's parameter tree (nested dicts of numpy arrays, e.g.
     ``jax.tree_util.tree_map(np.asarray, params)``) as the port's tree of
@@ -167,9 +180,11 @@ def _maybe_post(p, name, y, cfg):
     return y
 
 
-def _ffn_tail(lp, x, cfg: ArchConfig, f: str):
+def _ffn_tail(lp, x, cfg: ArchConfig, f: str, constrained: bool = True):
     """The block's FFN half (pre-norm, dense or MoE FFN, post-norm,
-    residual).  Returns (x, aux loss or None)."""
+    residual, then the ``act_btd`` constraint unless ``constrained`` is
+    False: the reference's decode step has none).  Returns (x, aux loss or
+    None)."""
     if f == "none":
         return x, None
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -178,7 +193,8 @@ def _ffn_tail(lp, x, cfg: ArchConfig, f: str):
         y, aux = ffn_mod.moe_ffn(lp["ffn"], h, cfg)
     else:
         y = ffn_mod.dense_ffn(lp["ffn"], h, cfg)
-    return x + _maybe_post(lp, "post_ln2", y, cfg), aux
+    x = x + _maybe_post(lp, "post_ln2", y, cfg)
+    return (constrain(x, "act_btd") if constrained else x), aux
 
 
 def _cross_tail(lp, x, cfg: ArchConfig, mem_kv):
@@ -199,7 +215,7 @@ def _run_block(p, x, cfg: ArchConfig, mixer: str, ffn: str, positions,
         y = attn.self_attention(p["attn"], h, cfg, positions, mixer)
     else:
         y = ssm_mod.mamba_forward(p["mamba"], h, cfg)
-    x = x + _maybe_post(p, "post_ln1", y, cfg)
+    x = constrain(x + _maybe_post(p, "post_ln1", y, cfg), "act_btd")
     x = _cross_tail(p, x, cfg, mem_kv)
     x, a = _ffn_tail(p, x, cfg, ffn)
     return x, aux if a is None else aux + a
@@ -213,6 +229,7 @@ def _scan_pattern(blocks, x, cfg: ArchConfig, positions, enc_out=None,
     block projects its cross K/V from it inside the region.  Returns (x,
     the summed aux loss): the MoE aux leaves each region as an output."""
     def body(x, aux, lps):
+        lps = gather(lps, "blocks")
         for i, (mixer, f) in enumerate(cfg.pattern):
             lp = lps[f"pos{i}"]
             kv = (None if enc_out is None else
@@ -238,7 +255,7 @@ def _embed(params, cfg: ArchConfig, tokens, frontend_embeds=None):
     x = e[tokens].to(dt) * scale.to(e.device)
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(dt), x], dim=1)
-    return x
+    return constrain(x, "act_btd")
 
 
 def _unembed_matrix(params, cfg: ArchConfig):
@@ -250,7 +267,7 @@ def _unembed_matrix(params, cfg: ArchConfig):
 def _logits(params, cfg: ArchConfig, h):
     w = _unembed_matrix(params, cfg)
     logits = linear(h, w.to(h.dtype), "unembed")
-    return softcap(logits.to(_F32), cfg.final_softcap)
+    return constrain(softcap(logits.to(_F32), cfg.final_softcap), "logits")
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -264,16 +281,17 @@ def _encode(params, cfg: ArchConfig, frame_embeds, remat: bool = False):
     """The encoder stack over ``frame_embeds`` (B, F, d): bidirectional
     attention + dense FFN per layer (each layer one remat region with
     ``remat``), then the final norm."""
-    x = frame_embeds.to(DTYPES[cfg.compute_dtype])
+    x = constrain(frame_embeds.to(DTYPES[cfg.compute_dtype]), "act_btd")
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     enc = params["encoder"]
 
     def layer(x, lp):
+        lp = gather(lp, "encoder/blocks")
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + attn.encoder_attention(lp["attn"], h, cfg, positions)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + ffn_mod.dense_ffn(lp["ffn"], h, cfg)
+        return constrain(x + ffn_mod.dense_ffn(lp["ffn"], h, cfg), "act_btd")
 
     for lp in _unstack(enc["blocks"], cfg.n_encoder_layers):
         x = _maybe_remat(layer, remat, x, lp)
@@ -419,7 +437,7 @@ def serve_prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                 st = ssm_mod.mamba_state_after(lp["mamba"], h, cfg)
                 c["conv"][rep] = st["conv"]
                 c["ssm"][rep] = st["ssm"]
-            x = x + _maybe_post(lp, "post_ln1", y, cfg)
+            x = constrain(x + _maybe_post(lp, "post_ln1", y, cfg), "act_btd")
             if cross is not None:
                 kc, vc = cross[f"pos{i}"]
                 x = _cross_tail(lp, x, cfg, (kc[rep], vc[rep]))
@@ -461,7 +479,7 @@ def serve_step(params, cfg: ArchConfig, cache: Dict[str, Any],
             if cross is not None:
                 kc, vc = cross[f"pos{i}"]
                 x = _cross_tail(lp, x, cfg, (kc[rep], vc[rep]))
-            x, _ = _ffn_tail(lp, x, cfg, f)
+            x, _ = _ffn_tail(lp, x, cfg, f, constrained=False)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x)
     cache["pos"] = pos + 1

@@ -55,15 +55,17 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 def adamw_update(params: Any, grads: Any, m: Any, v: Any, step,
-                 cfg: AdamWConfig, lr=None):
+                 cfg: AdamWConfig, lr=None, grad_norm=None):
     """One AdamW step at optimizer step ``step`` (0-based: the bias
     corrections use t = step + 1) with gradients clipped to a global norm
     of ``cfg.clip_norm``.  Returns (params, m, v, grad_norm); the new
     parameters keep their dtype and ``requires_grad``, the moments their
-    dtype."""
+    dtype.  ``grad_norm`` (a 0-dim float32 tensor) replaces
+    ``global_norm(grads)`` where ``grads`` are shards of the gradient
+    (``launch.sharded_step`` computes the norm over the mesh)."""
     lr = cfg.lr if lr is None else lr
     with torch.no_grad():
-        gn = global_norm(grads)
+        gn = global_norm(grads) if grad_norm is None else grad_norm
         dev = gn.device
         clip = torch.full_like(gn, cfg.clip_norm)
         scale = torch.clamp(clip / torch.clamp_min(gn, 1e-9), max=1.0)
