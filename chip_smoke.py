@@ -308,12 +308,31 @@ Phases (any failure raises and the script exits non-zero):
        payload shard equal bit for bit to the restored state gathered
        over the mesh, and step 3 there against the one-rank step 3.
 
+13. The dry run, FLOP audit and roofline (``launch.dryrun``,
+    ``launch.flops_audit``, ``launch.roofline``).  Child processes with no
+    card (``CUDA_VISIBLE_DEVICES=""``) start with the smoke and trace on
+    the meta device (``DRY_GROUPS``): every pod-mesh cell of
+    jamba-1.5-large-398b (4 shapes) and llama4-maverick-400b-a17b (3) at
+    full width, and 13b's cell.
+    a. Each cell's record: argument bytes equal to the plan's
+       (``ShardPlan.state_bytes`` and the batch or cache shards, counted
+       here from the specs); argument, temp and collective bytes per rank,
+       whether they fit on the card, the roofline terms and the dominant
+       one printed.  Every cell must finish.
+    b. qwen2-0.5b at phase 10a's shape (B 4 x S 4,096, 2 microbatches) on
+       a (1, 1) ``ShardPlan``: 3 steps of ``make_train_step`` on the card,
+       their peak (``max_memory_allocated`` over the allocation before the
+       state) within ``PEAK_RTOL`` of the estimate (argument + temp), one
+       more step's ``FlopCounterMode`` count equal to the audited FLOPs,
+       ms per step against the roofline's bound.  No kernel launches over
+       the phase.
+
 Each kernel's launch counter is set to 0 before its main-path run (phases
 2-3 for the LLG kernel, with its launches by layout, 2 and 6 for the
 write kernel, 5b and 9b (per arch) for the analog kernels, both in phase
 7, the LLG and bit-line MAC kernels in phase 8, the LLG, bit-line MAC
-and XNOR kernels in phase 11, and the bit-line MAC in phase 12) and read
-after it (the
+and XNOR kernels in phase 11, and the bit-line MAC in phase 12; phases 10
+and 13 reach no kernel) and read after it (the
 analog wrappers count their mainloop launches under ``launches``, and the
 split-K reduce pass a split call adds under ``reduce_launches``); the
 second-to-last line is the per-kernel JSON record and the last line
@@ -2949,6 +2968,7 @@ def phase10_full_width(torch, smi: str) -> dict:
         f"{shape.microbatches} microbatches, lr {TRAIN_LR}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     hist = train(cfg, shape, AdamWConfig(lr=TRAIN_LR),
                  TRAIN_STEP0 + TRAIN_STEPS, ckpt, save_every=10 ** 9,
@@ -2983,7 +3003,8 @@ def phase10_full_width(torch, smi: str) -> dict:
         ms_mean=ms_mean, ms_min=min(ms), ms_max=max(ms),
         tokens_per_s=tokens / (ms_mean / 1e3), model_flops_per_step=flops,
         bf16_peak_share=flops / (ms_mean / 1e3) / H100_BF16_DENSE_FLOPS,
-        max_memory_allocated=peak, wall_s=wall, card=smi)
+        max_memory_allocated=peak, allocated_before=before, wall_s=wall,
+        card=smi)
     log(f"  [{smi}] loss {hist[0].loss:.4f} -> {hist[-1].loss:.4f}; grad "
         f"norm {hist[0].grad_norm:.3f} -> {hist[-1].grad_norm:.3f}")
     log(f"  [{smi}] wall per step (host clock, each step ends in a device "
@@ -2993,7 +3014,8 @@ def phase10_full_width(torch, smi: str) -> dict:
         f"{flops:.4e} ({n_params:,} parameters), "
         f"{100 * out['bf16_peak_share']:.2f}% of the H100 SXM data sheet's "
         f"dense bf16 peak (989 TFLOP/s)")
-    log(f"  [{smi}] torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; "
+    log(f"  [{smi}] torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB "
+        f"({before / 2**30:.3f} GiB of it allocated before the phase); "
         f"phase 10a wall {wall:.1f} s")
     return out
 
@@ -4449,6 +4471,291 @@ def phase12(torch, dev, smi: str, ms_10a: float) -> dict:
                 bitline_reduce_launches=b3_reduce)
 
 
+# --- phase 13: the dry run, FLOP audit and roofline -------------------------
+
+# the cells the dry-run children trace, one child per group, all started
+# with the smoke: jamba's train cell (16 microbatches, ~5 min on one core)
+# alone, the other pod-mesh cells of the two 398e9-parameter archs and 13b's
+# cell ("hold") in the other
+DRY_GROUPS = (
+    (("jamba-1.5-large-398b", "train_4k"),),
+    (("qwen2-0.5b", "hold"),
+     ("llama4-maverick-400b-a17b", "train_4k"),
+     ("llama4-maverick-400b-a17b", "prefill_32k"),
+     ("llama4-maverick-400b-a17b", "decode_32k"),
+     ("jamba-1.5-large-398b", "prefill_32k"),
+     ("jamba-1.5-large-398b", "decode_32k"),
+     ("jamba-1.5-large-398b", "long_500k")),
+)
+# phase 13 waits for the children until this many seconds into the smoke
+DRY_DEADLINE_S = 1100
+HOLD_STEPS = 3
+# 13b: the estimate (argument + temp) against the measured peak
+PEAK_RTOL = 0.2
+CHILD_DRY = (
+    "import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+    "chip_smoke.dry_child(sys.argv[2], json.loads(sys.argv[3]))")
+
+
+def hold_shape():
+    """13b's cell: phase 10a's shape."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import TRAIN_MICROBATCHES
+
+    return ShapeConfig("train_4k_b4", "train", TRAIN_SEQ, TRAIN_BATCH,
+                       microbatches=TRAIN_MICROBATCHES[TRAIN_ARCH])
+
+
+def dry_child(out: str, cells: list) -> None:
+    """Trace ``cells`` on the meta device, one record each under ``out``
+    (``<arch>__<shape>.json``): the reference's pod-mesh cells, and "hold"
+    (13b's cell on a (1, 1) mesh)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+
+    for arch, shape in cells:
+        if shape == "hold":
+            t0 = time.perf_counter()
+            cell = dryrun.build(get_arch(arch), hold_shape(),
+                                MeshShape(("data", "model"), (1, 1)))
+            res = dryrun.trace(cell, time.perf_counter() - t0)
+        else:
+            res = dryrun.run_cell(arch, shape, False, verbose=False)
+        Path(out, f"{arch}__{shape}.json").write_text(json.dumps(res))
+
+
+def spawn_dry_children(root: Path) -> list:
+    """One child per ``DRY_GROUPS`` entry, its errors to a file under
+    ``root``."""
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    procs = []
+    for i, group in enumerate(DRY_GROUPS):
+        with open(root / f"child{i}.err", "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", CHILD_DRY, str(ROOT), str(root),
+                 json.dumps(group)], env=env, stdout=subprocess.DEVNULL,
+                stderr=err))
+    return procs
+
+
+def stop_children(procs: list) -> None:
+    for pr in procs:
+        if pr.poll() is None:
+            pr.kill()
+            pr.wait()
+
+
+def wait_dry_children(procs: list, root: Path, t_start: float) -> None:
+    deadline = t_start + DRY_DEADLINE_S
+    try:
+        for i, pr in enumerate(procs):
+            try:
+                pr.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(
+                    f"a dry-run child was still tracing "
+                    f"{DRY_DEADLINE_S} s into the smoke") from None
+            if pr.returncode != 0:
+                raise AssertionError(
+                    f"a dry-run child failed: "
+                    f"{(root / f'child{i}.err').read_text()[-3000:]}")
+    finally:
+        stop_children(procs)
+
+
+def plan_argument_bytes(arch: str, shape_name: str) -> int:
+    """Rank 0's argument bytes on the pod mesh from the plan and the
+    specs: ``state_bytes`` (train), the parameter shards and the batch or
+    decode cache shards, and the reference's int32 step counter (train) or
+    cache position (decode)."""
+    from repro_torch._tree import dict_leaves
+    from repro_torch.configs.base import shape_for
+    from repro_torch.configs.registry import TRAIN_MICROBATCHES, get_arch
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import production_mesh_shape
+    from repro_torch.launch.sharded_step import ShardPlan
+
+    cfg = get_arch(arch)
+    mesh = production_mesh_shape()
+    shape = shape_for(cfg, shape_name, TRAIN_MICROBATCHES[arch]
+                      if shape_name == "train_4k" else None)
+    plan = ShardPlan(cfg, mesh, (0, 0), kind=shape.kind)
+    state = plan.state_bytes()
+
+    def shards(tree, specs):
+        return sum(math.prod(SH.local_shape(tuple(x.shape), sp, mesh))
+                   * x.element_size()
+                   for x, sp in zip(dict_leaves(tree), dict_leaves(specs))
+                   if hasattr(x, "shape"))
+
+    batch = ST.input_specs(cfg, shape)
+    b_specs = SH.batch_shardings(mesh, shape, batch)
+    if shape.kind == "train":
+        return state["params"] + state["moments"] + shards(batch,
+                                                           b_specs) + 4
+    if shape.kind == "prefill":
+        return state["params"] + shards(batch, b_specs)
+    cache = ST.abstract_cache(cfg, shape)
+    return (state["params"] + shards(cache, SH.cache_shardings(
+        mesh, cfg, shape, cache)) + shards(batch, b_specs) + 4)
+
+
+def phase13_cells(root: Path) -> dict:
+    """13a: each pod-mesh cell's record held against the plan, printed
+    with its roofline terms."""
+    from repro_torch.launch import roofline
+
+    log("phase 13a: the dry run of the two 398e9-parameter archs on the "
+        "pod mesh (16 x 16), rank 0, traced on the meta device in child "
+        "processes; roofline terms from H100 SXM data-sheet rates "
+        "(analytic bounds, not card times)")
+    out = {}
+    for arch, shape in (c for g in DRY_GROUPS for c in g):
+        if shape == "hold":
+            continue
+        res = json.loads((root / f"{arch}__{shape}.json").read_text())
+        mem = res["memory"]
+        want = plan_argument_bytes(arch, shape)
+        if mem["argument_size_in_bytes"] != want:
+            raise AssertionError(f"{arch} {shape}: argument bytes "
+                                 f"{mem['argument_size_in_bytes']} != the "
+                                 f"plan's {want}")
+        a = roofline.analyze(res)
+        coll = a["coll_bytes"]
+        log(f"  {arch} {shape}: per rank argument "
+            f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB (= the plan's), "
+            f"temp {mem['temp_size_in_bytes'] / 1e9:.3f} GB, collectives "
+            f"{coll / 1e9:.2f} GB; fits in 80 GB: "
+            f"{'yes' if roofline.fits(res) else 'no'}; compute "
+            f"{a['t_compute'] * 1e3:.1f} ms, memory "
+            f"{a['t_memory'] * 1e3:.1f} ms, collective "
+            f"{a['t_collective'] * 1e3:.1f} ms -> {a['dominant']}; FLOPs "
+            f"per rank {res['flops_rank']:.4e}; traced in "
+            f"{res['t_lower_s']:.1f} s")
+        out[f"{arch}__{shape}"] = dict(
+            memory=mem, flops_rank=res["flops_rank"],
+            collectives=res["collectives"], fits=roofline.fits(res),
+            t_compute=a["t_compute"], t_memory=a["t_memory"],
+            t_collective=a["t_collective"], dominant=a["dominant"],
+            roofline_frac=a["roofline_frac"], trace_s=res["t_lower_s"])
+    return out
+
+
+def phase13_hold(torch, dev, smi: str, est: dict) -> dict:
+    """13b: the dry run's estimate of qwen2-0.5b's step against the step on
+    the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.sharded_step import ShardPlan
+
+    cfg = get_arch(TRAIN_ARCH)
+    shape = hold_shape()
+    mem = est["memory"]
+    est_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    log(f"phase 13b: {TRAIN_ARCH} at full width, B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ} in {shape.microbatches} microbatches on a (1, 1) "
+        f"ShardPlan; the dry run's estimate against {HOLD_STEPS} steps on "
+        f"the card")
+    plan = ShardPlan(cfg, MeshShape(("data", "model"), (1, 1)), (0, 0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    req_before = torch.cuda.memory_stats().get("requested_bytes.all.current",
+                                               0)
+    state = (*train_state(torch, cfg, shape, plan, dev), TRAIN_STEP0)
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    steps = []
+    for _ in range(HOLD_STEPS):
+        # one step per call: nothing here holds a state past its step, as
+        # nothing in ``train``'s loop does (a tuple kept over the loop would
+        # keep the first state alive: 5.5 GB)
+        state, out = run_steps(torch, cfg, shape, plan, state, 1, dev)
+        steps += out
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    requested = (torch.cuda.memory_stats().get("requested_bytes.all.peak", 0)
+                 - req_before)
+    with FlopCounterMode(display=False) as counter:
+        state, _ = run_steps(torch, cfg, shape, plan, state, 1, dev)
+    flops = float(counter.get_total_flops())
+    del state
+    torch.cuda.empty_cache()
+    ms = [r[2] for r in steps]
+    ms_mean = sum(ms[1:]) / len(ms[1:])
+    terms = roofline.bound_terms(est)
+    frac = terms["bound"] / (ms_mean / 1e3)
+    model = train_flops(cfg, spec_count(cfg), TRAIN_BATCH, TRAIN_SEQ)
+    gap = est_peak / peak - 1.0
+    log(f"  [{smi}] peak over the allocation before the state "
+        f"{peak / 2**30:.3f} GiB against the estimate (argument "
+        f"{mem['argument_size_in_bytes'] / 2**30:.3f} + temp "
+        f"{mem['temp_size_in_bytes'] / 2**30:.3f}) "
+        f"{est_peak / 2**30:.3f} GiB: {100 * gap:+.2f}%; over the state "
+        f"(baseline {(baseline - before) / 2**30:.3f} GiB) "
+        f"{(peak - (baseline - before)) / 2**30:.3f} GiB against temp; "
+        f"requested bytes' peak {requested / 2**30:.3f} GiB (the allocator's "
+        f"blocks unrounded); {before / 2**30:.3f} GiB allocated before the "
+        f"phase")
+    log(f"  [{smi}] FLOPs of a step on the card (FlopCounterMode) "
+        f"{flops:.6e}, audited on meta {est['flops_rank']:.6e}")
+    log(f"  [{smi}] ms per step {[round(x, 1) for x in ms]} (mean after the "
+        f"first {ms_mean:.1f}); the roofline's bound {terms['bound'] * 1e3:.1f}"
+        f" ms ({terms['dominant']}: compute {terms['t_compute'] * 1e3:.1f}, "
+        f"memory {terms['t_memory'] * 1e3:.1f} ms) -> {100 * frac:.1f}% of "
+        f"the bound reached; model FLOPs {model:.4e}, "
+        f"{100 * model / (ms_mean / 1e3) / H100_BF16_DENSE_FLOPS:.2f}% of "
+        f"the dense bf16 peak")
+    if abs(gap) > PEAK_RTOL:
+        raise AssertionError(f"the estimate {est_peak} is {100 * gap:.1f}% "
+                             f"from the measured peak {peak}")
+    if flops != est["flops_rank"]:
+        raise AssertionError(f"the card's step counts {flops} FLOPs, the "
+                             f"audit {est['flops_rank']}")
+    return dict(peak=peak, requested_peak=requested, estimate=est_peak,
+                memory=mem, gap=gap, baseline=baseline - before,
+                allocated_before=before,
+                flops_card=flops, flops_audit=est["flops_rank"],
+                ms_per_step=ms, ms_mean=ms_mean, bound_ms=terms["bound"] * 1e3,
+                dominant=terms["dominant"], t_compute=terms["t_compute"],
+                t_memory=terms["t_memory"], roofline_frac=frac,
+                model_flops=model, card=smi)
+
+
+def phase13(torch, dev, smi: str, children: list, t_start: float) -> dict:
+    """Phase 13: the dry-run children's cells (13a) and the hold on the
+    card (13b); no kernel wrapper launches over the phase."""
+    t0 = time.perf_counter()
+    before = kernel_counts()
+    root = ROOT / "build" / "smoke-dryrun"
+    wait_dry_children(children, root, t_start)
+    waited = time.perf_counter() - t0
+    cells = phase13_cells(root)
+    hold = phase13_hold(torch, dev, smi, json.loads(
+        (root / f"{TRAIN_ARCH}__hold.json").read_text()))
+    after = kernel_counts()
+    if after != before:
+        raise AssertionError(f"phase 13 launched a kernel: {before} -> "
+                             f"{after}")
+    shutil.rmtree(root, ignore_errors=True)
+    total = time.perf_counter() - t0
+    log(f"  phase 13 total: {total:.1f} s (waiting for the children "
+        f"{waited:.1f}); kernel launches: 0")
+    return dict(cells=cells, hold=hold, total_s=total, wait_s=waited)
+
+
 def kernel_counts() -> dict:
     from repro_torch.kernels.bitline_mac import bitline_mac_kernel
     from repro_torch.kernels.fake_analog import fake_analog_kernel
@@ -4501,12 +4808,22 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    t_start = time.perf_counter()
+    children = spawn_dry_children(ROOT / "build" / "smoke-dryrun")
+    try:
+        return run_phases(torch, t_start, children)
+    finally:
+        stop_children(children)
+
+
+def run_phases(torch, t_start: float, children: list) -> int:
     from repro_torch.kernels import build, llg_rk4, llg_write
     from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
 
-    t_start = time.perf_counter()
     smi = nvidia_smi()
-    log(f"phase 0: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"phase 0: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}"
+        f"; {os.cpu_count()} CPU cores; the card's memory "
+        f"{torch.cuda.mem_get_info()[1]} bytes")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_build = build.build_many(("llg_rk4", "llg_write", "analog_mac",
@@ -4578,6 +4895,7 @@ def main() -> int:
     training = phase10(torch, dev, smi)
     scale = phase11(torch, dev)
     sharded = phase12(torch, dev, smi, training["full_width"]["ms_mean"])
+    dry = phase13(torch, dev, smi, children, t_start)
 
     record = {"kernels": [{
         "name": "llg_rk4",
@@ -4745,6 +5063,8 @@ def main() -> int:
     record["phase11"] = {k: v for k, v in scale.items()
                          if k not in ("launch_layouts",)}
     record["phase12"] = sharded
+    # phase 13: the dry run reaches no kernel (every count unchanged)
+    record["phase13"] = dry
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps(record), flush=True)

@@ -5,7 +5,8 @@ config built here and one built there describe the same model.
 ``param_count`` / ``active_param_count`` count every arch, as the
 closed-form decode mapping (``imc.mapping``) needs.  ``ShapeConfig`` /
 ``SHAPES`` are the reference's workload shapes (sequence, global batch,
-microbatches); ``shape_for`` picks one, with the microbatches overridden.
+microbatches); ``shape_for`` picks one, with the microbatches overridden;
+``LONG_CONTEXT_ARCHS`` the archs that run ``long_500k``.
 """
 from __future__ import annotations
 
@@ -139,6 +140,10 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
 }
+
+# Archs whose long_500k cell runs (the constant-state SSM and the sparse-KV
+# hybrid); every pure full-attention arch skips it, as in the reference.
+LONG_CONTEXT_ARCHS = ("mamba2-780m", "jamba-1.5-large-398b")
 
 
 def shape_for(arch: ArchConfig, shape_name: str,

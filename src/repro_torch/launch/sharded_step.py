@@ -33,6 +33,9 @@ of the parameter specs (``launch.sharding.param_shardings``):
 
 Every collective goes through ``ShardPlan``'s helpers, and an axis of size
 1 issues none, so a (1, 1) mesh computes exactly the one-device step.
+``DryShardPlan`` is the same plan with no process group: its helpers
+return empty tensors of the result's shape and tally each call
+(``launch.dryrun`` traces a rank's step with it on the meta device).
 gloo on the H100 machine's torch 2.11 takes CUDA tensors in
 ``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce`` and
 ``barrier`` (checked there for 2 and 4 ranks sharing the card), so
@@ -48,7 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -83,18 +86,19 @@ class _Gather(torch.autograd.Function):
 
 class ShardPlan:
     """One rank's view of ``mesh`` (a ``DeviceMesh``; a ``MeshShape`` with
-    ``coord`` for plans without collectives) and of ``cfg``'s training
-    parameter specs."""
+    ``coord`` for plans without collectives) and of ``cfg``'s parameter
+    specs for ``kind`` ("train", "prefill" or "decode":
+    ``launch.sharding.param_shardings``' kind)."""
 
     def __init__(self, cfg: ArchConfig, mesh,
-                 coord: Optional[Sequence[int]] = None):
+                 coord: Optional[Sequence[int]] = None, kind: str = "train"):
         self.cfg = cfg
         self.mesh = mesh
         self.sizes = axis_sizes(mesh)
         self.dp = data_axes(mesh)
         self.dp_size = math.prod(self.sizes[a] for a in self.dp)
         self.specs = SH.param_shardings(cfg, mesh, M.logical_axes(cfg),
-                                        M.abstract_params(cfg), "train")
+                                        M.abstract_params(cfg), kind)
         if coord is None:
             coord = mesh.get_coordinate()
         self.coord: Dict[str, int] = dict(zip(self.sizes, coord))
@@ -150,13 +154,20 @@ class ShardPlan:
     def _group(self, axis: str):
         return self.mesh.get_group(axis)
 
+    def _collective(self, op: str, result: torch.Tensor, issue) -> None:
+        """Issue one collective (``issue()``) whose result is ``result``;
+        ``op`` is its kind ("all-gather", "reduce-scatter",
+        "all-reduce")."""
+        issue()
+
     # gloo takes the concatenated form only: (n x0, x1, ...)
     def _all_gather(self, x, dim: int, axis: str):
         n = self.sizes[axis]
         buf = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                           dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(buf, x.contiguous(),
-                                    group=self._group(axis))
+        self._collective("all-gather", buf,
+                         lambda: dist.all_gather_into_tensor(
+                             buf, x.contiguous(), group=self._group(axis)))
         return buf.unflatten(0, (n, x.shape[0])).movedim(0, dim).flatten(
             dim, dim + 1)
 
@@ -164,17 +175,21 @@ class ShardPlan:
         n = self.sizes[axis]
         inp = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0)
         out = torch.empty(inp.shape[1:], dtype=g.dtype, device=g.device)
-        dist.reduce_scatter_tensor(out, inp.contiguous().flatten(0, 1),
-                                   group=self._group(axis))
+        self._collective("reduce-scatter", out,
+                         lambda: dist.reduce_scatter_tensor(
+                             out, inp.contiguous().flatten(0, 1),
+                             group=self._group(axis)))
         return out
 
     def _narrow(self, g, dim: int, axis: str):
         c = g.shape[dim] // self.sizes[axis]
         return g.narrow(dim, self.coord[axis] * c, c)
 
-    def _all_reduce(self, t, axis: str):
+    def _all_reduce(self, t, axis: str, op=None):
         t = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(t, group=self._group(axis))
+        kw = {} if op is None else {"op": op}
+        self._collective("all-reduce", t, lambda: dist.all_reduce(
+            t, group=self._group(axis), **kw))
         return t
 
     def _gather(self, x, spec):
@@ -240,7 +255,7 @@ class ShardPlan:
         for axes, idx in by_axes.items():
             t = torch.stack([sq[i] for i in idx])
             for a in axes:
-                dist.all_reduce(t, group=self._group(a))
+                t = self._all_reduce(t, a)
             for j, i in enumerate(idx):
                 sq[i] = t[j]
         total = None
@@ -253,8 +268,7 @@ class ShardPlan:
         t = torch.tensor([int(flag)], device=device)
         for a, n in self.sizes.items():
             if n > 1:
-                dist.all_reduce(t, op=dist.ReduceOp.MAX,
-                                group=self._group(a))
+                t = self._all_reduce(t, a, op=dist.ReduceOp.MAX)
         return bool(t.item())
 
     def barrier(self) -> None:
@@ -280,18 +294,89 @@ class ShardPlan:
         return out
 
     @contextlib.contextmanager
-    def hooks(self, shape: ShapeConfig):
+    def hooks(self, shape: ShapeConfig, cache_specs: Any = None):
         """The gather hook and ``shape``'s activation policy installed for
-        the block, both removed after it."""
+        the block, both removed after it.  With ``cache_specs`` (the spec
+        tree of ``launch.sharding.cache_shardings``) the hook also gathers
+        each repeat's decode cache (site "cache") over every axis that
+        splits it but the batch dimension's data axes: a rank decodes its
+        own rows."""
         SH.activation_policy(self.mesh, self.cfg, shape)
-        sharding_hooks.set_gather(
-            lambda tree, site: self.gather_tree(tree,
-                                                self._repeat_specs[site]))
+        cache = (None if cache_specs is None else
+                 map_cache_specs(lambda sp: sp[1:],
+                                 rows_specs(cache_specs, self.dp)))
+
+        def gather(tree, site):
+            if site == "cache":
+                return map_specs(self._gather, tree, cache)
+            return self.gather_tree(tree, self._repeat_specs[site])
+
+        sharding_hooks.set_gather(gather)
         try:
             yield
         finally:
             sharding_hooks.set_policy(None)
             sharding_hooks.set_gather(None)
+
+
+def map_specs(fn, tree: Any, specs: Any) -> Any:
+    """``fn(leaf, spec)`` over ``tree``, whose dicts may hold a subset of
+    ``specs``' keys and whose tuples hold leaves."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_specs(fn, v, sp) for v, sp in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def map_cache_specs(fn, specs: Any) -> Any:
+    """``fn`` over the tensor specs of a cache spec tree (dicts, and
+    tuples of a cross K / V pair; a tensor's spec starts with its layers
+    dimension's None, a scalar's is ())."""
+    if isinstance(specs, dict):
+        return {k: map_cache_specs(fn, v) for k, v in specs.items()}
+    if specs and isinstance(specs[0], tuple):
+        return type(specs)(map_cache_specs(fn, v) for v in specs)
+    return fn(specs)
+
+
+def rows_specs(specs: Any, dp: Tuple[str, ...]) -> Any:
+    """Cache specs with each tensor's batch dimension (1) whole where the
+    data axes split it: the specs of a data rank's own rows, which it
+    computes (prefill) and decodes itself."""
+    def keep_rows(spec):
+        if len(spec) < 2 or not set(SH.spec_axes(spec[1])) & set(dp):
+            return spec
+        return (spec[0], None) + tuple(spec[2:])
+
+    return map_cache_specs(keep_rows, specs)
+
+
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+class DryShardPlan(ShardPlan):
+    """A ``ShardPlan`` at mesh coordinate ``coord`` (rank 0's by default)
+    that needs no process group: each collective helper returns an empty
+    tensor of its result's shape on the operand's device (meta in a dry
+    run) and adds one call and the result's bytes to ``tally`` under the
+    reference dry run's five keys (``repro.launch.dryrun``'s
+    ``collective_bytes`` counts the result shapes of the HLO's collectives
+    the same way).  "all-to-all" and "collective-permute" stay 0: the
+    plan issues neither."""
+
+    def __init__(self, cfg: ArchConfig, mesh,
+                 coord: Optional[Sequence[int]] = None, kind: str = "train"):
+        if coord is None:
+            coord = (0,) * len(axis_sizes(mesh))
+        super().__init__(cfg, mesh, coord, kind)
+        self.tally = {k: {"count": 0, "bytes": 0} for k in COLLECTIVES}
+
+    def _collective(self, op: str, result: torch.Tensor, issue) -> None:
+        t = self.tally[op]
+        t["count"] += 1
+        t["bytes"] += result.numel() * result.element_size()
 
 
 def elastic_remesh(n_available: int, old_mesh, shape: ShapeConfig):

@@ -118,8 +118,18 @@ def moe_ffn(p, x, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     logits, probs, _, sel, combine, _ = moe_route(p, x, cfg)
     G, tg = combine.shape[:2]
     xt = x.reshape(G, tg, d)
-    dispatch = (combine > 0.0).to(x.dtype)
+    # the aux loss comes before the expert products: a recompute region's
+    # backward re-runs its forward up to the last op that saves a tensor,
+    # so the last product (the return einsum, or the shared expert's down
+    # projection, the larger of the two) is not re-run; the reference's
+    # remat drops both (ROADMAP C20)
+    me = torch.mean(probs, dim=1)                                # (G,E)
+    ce = torch.mean(sel.sum(dim=2), dim=1)                       # (G,E)
+    lb = e * torch.mean(torch.sum(me * ce, dim=-1))
+    zl = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    aux = 0.01 * lb + 0.001 * zl
 
+    dispatch = (combine > 0.0).to(x.dtype)
     xe = torch.einsum("gtec,gtd->egcd", dispatch, xt)            # (E,G,C,d)
     h_g = act_fn(torch.einsum("egcd,edf->egcf", xe,
                               p["w_gate"].to(x.dtype)), cfg.act)
@@ -127,14 +137,6 @@ def moe_ffn(p, x, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     ye = torch.einsum("egcf,efd->egcd", h_g * h_u, p["w_down"].to(x.dtype))
     y = torch.einsum("egcd,gtec->gtd", ye, combine.to(x.dtype))
     y = y.reshape(B, S, d)
-
-    # Switch load-balance loss + router z-loss
-    me = torch.mean(probs, dim=1)                                # (G,E)
-    ce = torch.mean(sel.sum(dim=2), dim=1)                       # (G,E)
-    lb = e * torch.mean(torch.sum(me * ce, dim=-1))
-    zl = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
-    aux = 0.01 * lb + 0.001 * zl
-
     if cfg.moe.shared_expert:
         y = y + dense_ffn(p["shared"], x, cfg)
     return y, aux

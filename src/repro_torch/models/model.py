@@ -251,8 +251,9 @@ def _embed(params, cfg: ArchConfig, tokens, frontend_embeds=None):
     ``frontend_embeds`` (B, F, d) concatenated before the tokens."""
     dt = DTYPES[cfg.compute_dtype]
     e = params["embed"]
-    scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=_F32)).to(dt)
-    x = e[tokens].to(dt) * scale.to(e.device)
+    scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=_F32,
+                                    device=e.device)).to(dt)
+    x = e[tokens].to(dt) * scale
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(dt), x], dim=1)
     return constrain(x, "act_btd")
@@ -301,15 +302,17 @@ def _encode(params, cfg: ArchConfig, frame_embeds, remat: bool = False):
 def _cross_kv(params, cfg: ArchConfig, enc_out):
     """Per pattern position, the cross K/V of every repeat, stacked:
     ((n_repeats, B, F, kv, hd), same)."""
-    out = {}
-    for i in range(len(cfg.pattern)):
-        blk = params["blocks"][f"pos{i}"]["cross"]
-        kv = [attn.project_memory_kv({"wk": blk["wk"][r], "wv": blk["wv"][r]},
-                                     enc_out, cfg)
-              for r in range(cfg.n_pattern_repeats)]
-        out[f"pos{i}"] = (torch.stack([k for k, _ in kv]),
-                          torch.stack([v for _, v in kv]))
-    return out
+    kv = {f"pos{i}": [] for i in range(len(cfg.pattern))}
+    for r in range(cfg.n_pattern_repeats):
+        cross = gather({pos: {"cross": {w: params["blocks"][pos]["cross"][w][r]
+                                        for w in ("wk", "wv")}}
+                        for pos in kv}, "blocks")
+        for pos, lst in kv.items():
+            lst.append(attn.project_memory_kv(cross[pos]["cross"], enc_out,
+                                              cfg))
+    return {pos: (torch.stack([k for k, _ in lst]),
+                  torch.stack([v for _, v in lst]))
+            for pos, lst in kv.items()}
 
 
 # --------------------------------------------------------------------------
@@ -420,8 +423,10 @@ def serve_prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         cache["cross"] = cross
     fn = (attn.chunked_attention if S > attn.CHUNK_THRESHOLD
           else attn.full_attention)
-    for rep in range(cfg.n_pattern_repeats):
-        lps = layer_params(params, rep)
+
+    def repeat(x, rep):
+        # a function, so a sharded rank's gathered weights die with it
+        lps = gather(layer_params(params, rep), "blocks")
         for i, (mixer, f) in enumerate(cfg.pattern):
             lp = lps[f"pos{i}"]
             c = cache["blocks"][f"pos{i}"]
@@ -442,6 +447,10 @@ def serve_prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                 kc, vc = cross[f"pos{i}"]
                 x = _cross_tail(lp, x, cfg, (kc[rep], vc[rep]))
             x, _ = _ffn_tail(lp, x, cfg, f)
+        return x
+
+    for rep in range(cfg.n_pattern_repeats):
+        x = repeat(x, rep)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x[:, -1:, :])
     cache["pos"] = S
@@ -458,28 +467,38 @@ def serve_step(params, cfg: ArchConfig, cache: Dict[str, Any],
     if pos >= max_seq:
         raise ValueError(f"decode at position {pos} past max_seq {max_seq}")
     x = _embed(params, cfg, tokens)
-    cross = cache.get("cross")
-    for rep in range(cfg.n_pattern_repeats):
-        lps = layer_params(params, rep)
+
+    def repeat(x, rep):
+        # a function, so a sharded rank's gathered weights and cache die
+        # with it
+        lps = gather(layer_params(params, rep), "blocks")
+        # the repeat's cache: views into the stacked cache (written in
+        # place), or a sharded rank's gathered copies (site "cache")
+        rc = {"blocks": {key: {k: v[rep] for k, v in c.items()}
+                         for key, c in cache["blocks"].items()}}
+        if "cross" in cache:
+            rc["cross"] = {key: (kc[rep], vc[rep])
+                           for key, (kc, vc) in cache["cross"].items()}
+        rc = gather(rc, "cache")
         for i, (mixer, f) in enumerate(cfg.pattern):
             lp = lps[f"pos{i}"]
-            c = cache["blocks"][f"pos{i}"]
+            c = rc["blocks"][f"pos{i}"]
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             if mixer.startswith("attn"):
-                y, _ = attn.decode_self_attention(
-                    lp["attn"], h, {"k": c["k"][rep], "v": c["v"][rep]}, pos,
-                    cfg, mixer)
+                y, _ = attn.decode_self_attention(lp["attn"], h, c, pos, cfg,
+                                                  mixer)
             else:
-                y, st = ssm_mod.mamba_decode_step(
-                    lp["mamba"], h, {"conv": c["conv"][rep],
-                                     "ssm": c["ssm"][rep]}, cfg)
-                c["conv"][rep] = st["conv"]
-                c["ssm"][rep] = st["ssm"]
+                y, st = ssm_mod.mamba_decode_step(lp["mamba"], h, c, cfg)
+                c["conv"].copy_(st["conv"])
+                c["ssm"].copy_(st["ssm"])
             x = x + _maybe_post(lp, "post_ln1", y, cfg)
-            if cross is not None:
-                kc, vc = cross[f"pos{i}"]
-                x = _cross_tail(lp, x, cfg, (kc[rep], vc[rep]))
+            if "cross" in rc:
+                x = _cross_tail(lp, x, cfg, rc["cross"][f"pos{i}"])
             x, _ = _ffn_tail(lp, x, cfg, f, constrained=False)
+        return x
+
+    for rep in range(cfg.n_pattern_repeats):
+        x = repeat(x, rep)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x)
     cache["pos"] = pos + 1

@@ -28,7 +28,8 @@ def _port_modules():
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
-        ROOT / "examples" / f"{name}.py" for name in TWINS]
+        ROOT / "examples" / f"{name}.py" for name in TWINS] + [
+        ROOT / "tools" / f"{name}.py" for name in TOOL_TWINS]
 
 
 TWINS = ("torch_model_accuracy_study", "torch_quickstart",
@@ -36,6 +37,7 @@ TWINS = ("torch_model_accuracy_study", "torch_quickstart",
          "torch_retention_study", "torch_write_path_study",
          "torch_fault_study", "torch_serving_study", "torch_train_lm",
          "torch_analog_accuracy", "torch_array_mc_sim")
+TOOL_TWINS = ("torch_hillclimb", "torch_gen_experiments")
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
@@ -80,7 +82,10 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.checkpoint.checkpointer",
               "repro_torch.launch.steps", "repro_torch.launch.train",
               "repro_torch.launch.mesh", "repro_torch.launch.sharding",
-              "repro_torch.runtime.elastic"):
+              "repro_torch.runtime.elastic", "repro_torch.launch.dryrun",
+              "repro_torch.launch.flops_audit",
+              "repro_torch.launch.roofline",
+              "repro_torch.launch.live_bytes"):
         assert m in mods, m
     code = (
         "import sys\n"
