@@ -63,7 +63,7 @@ SMOKE_SHAPES = {
     "prefill": ShapeConfig("p", "prefill", 64, 2),
     "decode": ShapeConfig("decode_32k", "decode", 64, 2),
 }
-CHILD_TIMEOUT_S = 300
+CHILD_TIMEOUT_S = 120
 
 
 def _mesh(data, model):
@@ -119,7 +119,7 @@ print(json.dumps({"argument": m.argument_size_in_bytes,
 def test_qwen3_cell_matches_xla():
     r = subprocess.run([sys.executable, "-c", XLA_CELL],
                        env={**os.environ, "PYTHONPATH": str(REPO / "src")},
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
     assert r.returncode == 0, r.stderr[-2000:]
     xla = json.loads(r.stdout.strip().splitlines()[-1])
     cell = D.build(smoke_config("qwen3-8b"),

@@ -99,7 +99,7 @@ def test_every_module_imports_with_jax_blocked():
         "print('NOJAX_OK')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "NOJAX_OK" in out.stdout
 

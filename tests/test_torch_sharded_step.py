@@ -58,7 +58,7 @@ NORM_RTOL = 1e-6
 PARAM_ATOL = 1e-5
 PARAM_SHARE = 0.01
 MOMENT_RTOL = 1e-4
-CHILD_TIMEOUT_S = 300
+CHILD_TIMEOUT_S = 120
 
 
 def _jobs(mesh):

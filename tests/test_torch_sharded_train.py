@@ -21,7 +21,6 @@ resharded.
 import json
 import os
 import shutil
-import socket
 import subprocess
 import sys
 import textwrap
@@ -43,7 +42,7 @@ from repro_torch.models import model as TM
 REPO = Path(__file__).resolve().parents[1]
 ARCH = "qwen3-8b"
 B, S, MICRO = 4, 32, 2
-CHILD_TIMEOUT_S = 300
+CHILD_TIMEOUT_S = 120
 
 
 def train_rank(rank, world, mesh_shape, root, ckpt_dir, steps, micro):
@@ -195,12 +194,6 @@ def test_resume_on_the_degraded_mesh_matches_the_uninterrupted_run(runs):
             assert d <= bound or d == 0.0, (k, d)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_main_with_a_one_rank_mesh_equals_the_one_device_cli(
         tmp_path, monkeypatch):
     """``main --mesh 1,1`` (a 1-rank gloo group from the launcher's
@@ -210,9 +203,10 @@ def test_main_with_a_one_rank_mesh_equals_the_one_device_cli(
             "32", "--microbatches", "2", "--save-every", "2",
             "--log-every", "1", "--device", "cpu", "--lr", "1e-2"]
     one = main(args + ["--ckpt-dir", str(tmp_path / "one")])
+    # port 0: the lone rank's store binds a port the OS picks at that moment
     for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
                  "MASTER_ADDR": "127.0.0.1",
-                 "MASTER_PORT": str(_free_port())}.items():
+                 "MASTER_PORT": "0"}.items():
         monkeypatch.setenv(k, v)
     meshed = main(args + ["--ckpt-dir", str(tmp_path / "mesh"),
                           "--mesh", "1,1"])
