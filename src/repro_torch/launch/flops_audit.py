@@ -17,11 +17,12 @@ Elementwise FLOPs are not counted, on either side.  Where the two
 programs differ (ROADMAP C20): an einsum without a contracted index, or
 with a contraction of size 1, is a broadcast multiply in torch, which
 the counter does not count, where the reference's jaxpr has a
-``dot_general`` that it does (the Mamba-2 state products, llama4's top-1
-combine); and a recompute region re-runs its forward up to the last op
-that saves a tensor for the backward, where the reference's remat drops
-every recomputed op whose output the backward does not read (llama4's
-expert return einsum, before its shared expert).
+``dot_general`` that it does (the Mamba-2 state products); and the port
+routes a MoE layer's tokens by index (``models.ffn``: gathers and a k-way
+weighted sum), where the reference builds a one-hot (Tg, E, C) combine
+tensor and runs the dispatch and the return as einsums over it, so the
+reference counts those three einsums, their recompute and their
+transposes, and the port counts none.
 """
 from __future__ import annotations
 

@@ -1,18 +1,23 @@
 """Feed-forward layers (port of ``repro.models.ffn``): the gated dense FFN
 (SwiGLU / GeGLU) and GShard-style Mixture-of-Experts with capacity.
 
-MoE: tokens are grouped (``MOE_GROUP`` per group), each group builds a
-(Tg, E, C) combine tensor from a position-in-expert cumsum over the
-flattened (token, choice) order, and dispatch / return are einsums.  The
-aux loss (Switch load-balance + router z-loss) is returned beside the
-output.  The router and the expert products are plain ``@`` / ``einsum``,
-as in the reference: they do not pass through the ``linear`` hook, so the
-analog path leaves them exact (only a shared expert, a dense FFN, is
-routed).
+MoE: tokens are grouped (``MOE_GROUP`` per group) and each choice takes a
+slot of its expert by a position-in-expert cumsum over the flattened
+(token, choice) order, as in the reference.  From the routing, integer
+tables (``Routes``) map slots to tokens and tokens to slots: the dispatch
+is a row gather straight into the experts' (E, G, C, d) layout, and the
+return is each token's gate-weighted sum of its kept slots, in float32
+and in ascending expert order.  The reference builds a (Tg, E, C) one-hot
+combine tensor and runs both as einsums; the results agree to rounding
+(the dispatch is the same copy).  The aux loss (Switch load-balance +
+router z-loss) is returned beside the output.  The router and the expert
+products are plain ``@`` / ``einsum``, as in the reference: they do not
+pass through the ``linear`` hook, so the analog path leaves them exact
+(only a shared expert, a dense FFN, is routed).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -78,9 +83,102 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+class Routes(NamedTuple):
+    """A MoE call's routing as index tables.  Slots are numbered in the
+    experts' (E, G, C) order, tokens over the n = G x Tg rows of the
+    layer's input.  A choice fills a slot when it is within capacity and
+    its gate is > 0; a sentinel, one past the last slot, token or choice,
+    marks an empty slot or a dropped choice."""
+    slot_token: torch.Tensor    # (E G C,) the token in each slot, or n
+    slot_choice: torch.Tensor   # (E G C,) its choice, flat over (n, k), or nk
+    token_slot: torch.Tensor    # (n, k) each choice's slot, or E G C; a
+                                # token's choices in ascending expert order
+    gates: torch.Tensor         # (n, k) in token_slot's order, 0 if dropped
+
+
+def _routes(expert_idx, pos, gate_vals, e: int, cap: int) -> Routes:
+    G, tg, k = expert_idx.shape
+    n, slots = G * tg, e * G * cap
+    dev = expert_idx.device
+    group = torch.arange(G, device=dev)[:, None, None]
+    slot = (expert_idx * G + group) * cap + pos.to(torch.long)
+    slot = torch.where(gate_vals > 0.0, slot, slots).reshape(n, k)
+    # a token's slots ascend with its experts: sorting them orders its
+    # choices by expert, dropped ones last
+    token_slot, order = torch.sort(slot, dim=-1)
+    gates = torch.gather(gate_vals.reshape(n, k), 1, order)
+    # every dropped choice writes the sentinel entry, which is cut off
+    slot_choice = torch.full((slots + 1,), n * k, dtype=torch.long,
+                             device=dev).scatter_(
+        0, token_slot.reshape(-1), torch.arange(n * k, device=dev))[:slots]
+    return Routes(slot_choice // k, slot_choice, token_slot, gates)
+
+
+def _weighted_rows(rows, index, weights, dtype):
+    """``out[i] = sum_j weights[i, j] rows[index[i, j]]`` over the j whose
+    index is a row (a sentinel, past the last row, adds nothing): products
+    and sums in float32, j ascending, rounded once to ``dtype``."""
+    m, k = index.shape
+    held = index < rows.shape[0]
+    picked = rows.index_select(0, torch.where(held, index, 0).reshape(-1))
+    picked = picked.view(m, k, -1)
+    w = torch.where(held, weights.to(_F32), 0.0)[..., None]
+    out = picked[:, 0] * w[:, 0]
+    for j in range(1, k):
+        out.addcmul_(picked[:, j], w[:, j])
+    return out.to(dtype)
+
+
+class MoEDispatch(torch.autograd.Function):
+    """x (n, d) -> each slot's token row (E G C, d), zero in an empty slot:
+    a copy.  The backward sums each token's kept slot rows through the
+    token -> slot table, in a fixed order (no atomics)."""
+
+    @staticmethod
+    def forward(ctx, x, routes: Routes):
+        ctx.save_for_backward(routes.token_slot)
+        rows = torch.nn.functional.pad(x, (0, 0, 0, 1))
+        return rows.index_select(0, routes.slot_token)
+
+    @staticmethod
+    def backward(ctx, grad):
+        token_slot, = ctx.saved_tensors
+        ones = torch.ones_like(token_slot, dtype=_F32)
+        return _weighted_rows(grad, token_slot, ones, grad.dtype), None
+
+
+class MoECombine(torch.autograd.Function):
+    """ye (E G C, d), gates (n, k) -> y (n, d): each token's gate-weighted
+    sum of its kept slot rows (``_weighted_rows``).  The backward takes
+    gate x grad_y[token] into each slot through the slot -> token table,
+    and each kept gate's row dot product, so nothing is summed by
+    atomics."""
+
+    @staticmethod
+    def forward(ctx, ye, gates, routes: Routes):
+        ctx.save_for_backward(ye, gates, routes.slot_token,
+                              routes.slot_choice, routes.token_slot)
+        return _weighted_rows(ye, routes.token_slot, gates, ye.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ye, gates, slot_token, slot_choice, token_slot = ctx.saved_tensors
+        n, k = token_slot.shape
+        slot_gate = torch.nn.functional.pad(gates.reshape(-1), (0, 1))[
+            slot_choice]
+        g_ye = _weighted_rows(grad, slot_token[:, None], slot_gate[:, None],
+                              ye.dtype)
+        held = token_slot < ye.shape[0]
+        picked = ye.index_select(0, torch.where(held, token_slot, 0).reshape(
+            -1)).view(n, k, -1)
+        g_gates = torch.sum(picked.to(_F32) * grad.to(_F32)[:, None], dim=-1)
+        return g_ye, torch.where(held, g_gates, 0.0).to(gates.dtype), None
+
+
 def moe_route(p, x, cfg: ArchConfig):
     """The router half of ``moe_ffn``: (logits, probs, expert indices,
-    gates after the capacity mask, combine (G, Tg, E, C), kept mask)."""
+    the one-hot choices sel (G, Tg, k, E), the routing tables ``Routes``,
+    kept mask)."""
     B, S, d = x.shape
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     tg = min(MOE_GROUP, B * S)
@@ -102,25 +200,19 @@ def moe_route(p, x, cfg: ArchConfig):
     pos = torch.sum(pos * sel_flat, dim=-1).reshape(G, tg, k)    # (G,Tg,k)
     keep = pos < cap
     gate_vals = gate_vals * keep
-
-    slots = torch.arange(cap, device=x.device, dtype=_F32)
-    pos_oh = (pos[..., None] == slots).to(_F32) * keep[..., None]
-    # combine[g,t,e,c] = gate for token t's slot c of expert e
-    combine = torch.einsum("gtke,gtkc->gtec", sel,
-                           pos_oh * gate_vals[..., None])
-    return logits, probs, expert_idx, sel, combine, keep
+    routes = _routes(expert_idx, pos, gate_vals, e, cap)
+    return logits, probs, expert_idx, sel, routes, keep
 
 
 def moe_ffn(p, x, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_loss).  x: (B, S, d)."""
     B, S, d = x.shape
     e = cfg.moe.num_experts
-    logits, probs, _, sel, combine, _ = moe_route(p, x, cfg)
-    G, tg = combine.shape[:2]
-    xt = x.reshape(G, tg, d)
+    logits, probs, _, sel, routes, _ = moe_route(p, x, cfg)
+    G = sel.shape[0]
     # the aux loss comes before the expert products: a recompute region's
     # backward re-runs its forward up to the last op that saves a tensor,
-    # so the last product (the return einsum, or the shared expert's down
+    # so the last product (the return, or the shared expert's down
     # projection, the larger of the two) is not re-run; the reference's
     # remat drops both (ROADMAP C20)
     me = torch.mean(probs, dim=1)                                # (G,E)
@@ -129,13 +221,12 @@ def moe_ffn(p, x, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     zl = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
     aux = 0.01 * lb + 0.001 * zl
 
-    dispatch = (combine > 0.0).to(x.dtype)
-    xe = torch.einsum("gtec,gtd->egcd", dispatch, xt)            # (E,G,C,d)
+    xe = MoEDispatch.apply(x.reshape(-1, d), routes).view(e, G, -1, d)
     h_g = act_fn(torch.einsum("egcd,edf->egcf", xe,
                               p["w_gate"].to(x.dtype)), cfg.act)
     h_u = torch.einsum("egcd,edf->egcf", xe, p["w_up"].to(x.dtype))
     ye = torch.einsum("egcf,efd->egcd", h_g * h_u, p["w_down"].to(x.dtype))
-    y = torch.einsum("egcd,gtec->gtd", ye, combine.to(x.dtype))
+    y = MoECombine.apply(ye.reshape(-1, d), routes.gates.to(x.dtype), routes)
     y = y.reshape(B, S, d)
     if cfg.moe.shared_expert:
         y = y + dense_ffn(p["shared"], x, cfg)

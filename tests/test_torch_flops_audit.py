@@ -4,7 +4,7 @@ backward and its recompute included) and the prefill step (B 2 x S 64).
 
 The port counts a step by running it on meta tensors under
 ``FlopCounterMode``; the reference walks the step's jaxpr.  The counts
-are equal on every dense arch and on olmoe-1b-7b.  Three archs hold a
+are equal on every dense arch.  The three MoE archs and mamba2 hold a
 measured gap, exact to the FLOP (ROADMAP C20):
 
 * mamba2-780m, jamba-1.5-large-398b: the SSD's einsums without a
@@ -13,13 +13,22 @@ measured gap, exact to the FLOP (ROADMAP C20):
   count, where the reference's jaxpr has ``dot_general``s, and so are
   their transposes in the backward: 6 (mamba2) and 21 (jamba) of them
   per prefill, 32 and 112 per train step;
-* llama4-maverick-400b-a17b: its top-1 combine einsum contracts a
-  dimension of size 1, again a broadcast multiply (40,960 FLOPs, 2 per
-  prefill, 12 per train step); and the recompute re-runs the expert
-  return einsum (2,621,440 FLOPs, once per MoE layer and microbatch: 4),
-  because a recompute region's backward re-runs its forward up to the
-  last op that saves a tensor (the shared expert's), where the
-  reference's remat drops it.
+* olmoe-1b-7b, jamba-1.5-large-398b, llama4-maverick-400b-a17b: the port
+  routes experts by index (gathers and a k-way sum, no matmul), where the
+  reference runs three einsums over a one-hot (Tg, E, C) tensor in each
+  MoE layer: the one that builds it (163,840 FLOPs at k 2, C 80; at
+  llama4's top-1 a broadcast multiply that torch never counted, 40,960),
+  the dispatch and the return (5,242,880 each at C 80; 2,621,440 at
+  llama4's C 40).  A prefill runs each once per MoE layer (olmoe 2,
+  llama4 2, jamba 4).  A train step (2 microbatches) runs each 3 times
+  per MoE layer and microbatch: the building einsum and the dispatch in
+  the forward, the recompute and the backward (one transpose each), the
+  return in the forward and twice in the backward (its two operands);
+  the recompute re-runs the return too where later ops of its region
+  save tensors for the backward (3 of jamba's 4 MoE layers).  Before,
+  the port's recompute re-ran llama4's return (before its shared
+  expert) where the reference's remat drops it; no return is a product
+  now, so that surplus went with it.
 """
 import jax
 import jax.numpy as jnp
@@ -41,16 +50,23 @@ from repro_torch.models.common import DTYPES
 
 SHAPES = {"train": (64, 4, 2), "prefill": (64, 2, 1)}
 OUTER = 32_768          # one SSD outer-product einsum at the smoke size
-TOP1 = 40_960           # llama4's top-1 combine einsum
-RETURN = 2_621_440      # llama4's expert return einsum
+TOP1 = 40_960           # llama4's top-1 one-hot building einsum (k 1)
+BUILD = 163_840         # the one-hot building einsum: 2 Tg E C k, k 2, C 80
+ONE_HOT = 5_242_880     # the dispatch or the return einsum: 2 Tg E C d, C 80
+ONE_HOT_TOP1 = 2_621_440    # the same at llama4's C 40
+MOE = BUILD + 2 * ONE_HOT   # a MoE layer's one-hot einsums, k 2
+MOE_TOP1 = 2 * ONE_HOT_TOP1
 # port - reference, in FLOPs
 GAPS = {
     ("mamba2-780m", "prefill"): -6 * OUTER,
     ("mamba2-780m", "train"): -32 * OUTER,
-    ("jamba-1.5-large-398b", "prefill"): -21 * OUTER,
-    ("jamba-1.5-large-398b", "train"): -112 * OUTER,
-    ("llama4-maverick-400b-a17b", "prefill"): -2 * TOP1,
-    ("llama4-maverick-400b-a17b", "train"): 4 * RETURN - 12 * TOP1,
+    ("olmoe-1b-7b", "prefill"): -2 * MOE,
+    ("olmoe-1b-7b", "train"): -2 * 2 * 3 * MOE,
+    ("jamba-1.5-large-398b", "prefill"): -21 * OUTER - 4 * MOE,
+    ("jamba-1.5-large-398b", "train"): (-112 * OUTER - 4 * 2 * 3 * MOE
+                                        - 3 * 2 * ONE_HOT),
+    ("llama4-maverick-400b-a17b", "prefill"): -2 * TOP1 - 2 * MOE_TOP1,
+    ("llama4-maverick-400b-a17b", "train"): -12 * TOP1 - 2 * 2 * 3 * MOE_TOP1,
 }
 
 

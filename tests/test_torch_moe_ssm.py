@@ -15,7 +15,18 @@ than XLA:CPU's fused ones, ROADMAP C3):
   up to 2.8e-6); the conv state is a slice of one product: equal;
 * port-only duality checks at the reference's own bounds
   (``tests/test_models.py``): chunked == stepwise within 1e-3, one expert
-  top-1 == the dense FFN within 1e-4.
+  top-1 == the dense FFN within 1e-4;
+* ``moe_ffn`` against the one-hot einsum formulation it replaced
+  (``tests/_moe_oracle.py``), on the same parameters: the dispatched rows
+  equal; float32 output max |d| <= 1e-6 x max |output| (the return sums
+  each token's slots in another order than the GEMM); every gradient
+  leaf max |d| <= 1e-5 x its max |value| (top-1's router in float64:
+  in float32 it is rounding noise), and bit-equal from one backward to
+  the next; bfloat16 output within one bfloat16 step of the oracle's
+  (both sum in float32 and round once); the index Functions' backward
+  the derivative of their forward (``gradcheck``);
+* ``moe_ffn`` counts no FLOP but the router's and the three expert
+  products'.
 """
 import dataclasses
 
@@ -24,6 +35,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from _moe_oracle import one_hot_moe
 
 from repro.configs.registry import smoke_config as j_smoke
 from repro.models import ffn as JF
@@ -39,6 +53,9 @@ from repro_torch.models.common import init_params as t_init
 
 MOE_TOL = 1e-5
 AUX_RTOL = 1e-6
+ORACLE_OUT = 1e-6
+ORACLE_GRAD = 1e-5
+BF16_STEP = 2.0 ** -7     # one bfloat16 step over the value, at most
 SSM_ATOL = 2e-5
 MOE_ARCHS = ["olmoe-1b-7b", "llama4-maverick-400b-a17b",
              "jamba-1.5-large-398b"]
@@ -133,6 +150,171 @@ def test_moe_single_expert_equals_dense():
     np.testing.assert_allclose(y_moe.numpy(),
                                TF.dense_ffn(dense, x, cfg).numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+def _shifted(jp, col, scale, shape, d):
+    """Unit-normal inputs shifted by ``scale`` along router column ``col``."""
+    r = np.asarray(jp["router"])[:, col]
+    return _x(shape + (d,)) + (scale * r / np.linalg.norm(r)).astype(
+        np.float32)
+
+
+def _oracle_case(case):
+    """(cfg, port params, x) of one case; each asserts what it exercises."""
+    arch = {"llama4_top1_shared": "llama4-maverick-400b-a17b",
+            "jamba": "jamba-1.5-large-398b"}.get(case, "olmoe-1b-7b")
+    jcfg, jp, cfg, tp = _params(JF.moe_specs, arch)
+    d = cfg.d_model
+    x = {"capacity_drop": lambda: _shifted(jp, 0, 4.0, (2, 64), d),
+         "idle_expert": lambda: _shifted(jp, 3, -4.0, (2, 16), d)}.get(
+        case, lambda: _x((2, 16, d)))()
+    _, _, idx, _, _, keep = TF.moe_route(tp, torch.from_numpy(x), cfg)
+    if case == "capacity_drop":
+        assert 0 < int((~keep).sum()) < keep.numel()
+    else:
+        assert bool(keep.all())
+    if case == "idle_expert":
+        assert not bool((idx == 3).any())
+    if case == "llama4_top1_shared":
+        assert cfg.moe.top_k == 1 and cfg.moe.shared_expert
+    return cfg, tp, x
+
+
+ORACLE_CASES = ["dropless", "capacity_drop", "idle_expert",
+                "llama4_top1_shared", "jamba"]
+
+
+def _leaves(p, prefix=""):
+    for k, v in p.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def _grads(fn, p, x, cfg):
+    """(output, {leaf: gradient}) of sum(y * fixed weights) + aux."""
+    p = {k: ({a: b.clone().requires_grad_() for a, b in v.items()}
+             if isinstance(v, dict) else v.clone().requires_grad_())
+         for k, v in p.items()}
+    x = x.clone().requires_grad_()
+    y, aux = fn(p, x, cfg)[:2]
+    w = torch.from_numpy(_x(tuple(y.shape), seed=7)).to(
+        torch.promote_types(y.dtype, torch.float32))
+    names, leaves = zip(*_leaves(p))
+    grads = torch.autograd.grad((y.to(w.dtype) * w).sum() + aux,
+                                (x,) + leaves)
+    return y.detach(), dict(zip(("x",) + names, grads))
+
+
+def _hold_grads(g, g_o, names):
+    for name in names:
+        d = float((g[name] - g_o[name]).abs().max())
+        assert d <= ORACLE_GRAD * float(g_o[name].abs().max()), (name, d)
+
+
+@pytest.mark.parametrize("case", ORACLE_CASES)
+def test_moe_ffn_matches_one_hot_oracle(case):
+    """Float32: the dispatch is the same copy, the return the same sum in
+    another order; the gradients of x, the router and every expert weight
+    agree and repeat bit for bit.  Top-1's router gradient is held in
+    float64 (``test_moe_top1_router_gradient_matches_one_hot_oracle``)."""
+    cfg, tp, x = _oracle_case(case)
+    x = torch.from_numpy(x)
+    _, _, _, _, routes, _ = TF.moe_route(tp, x, cfg)
+    slots = routes.token_slot    # each token's in ascending expert order
+    assert bool((slots[:, 1:] >= slots[:, :-1]).all())
+    xe = TF.MoEDispatch.apply(x.reshape(-1, cfg.d_model), routes)
+    xe_o = one_hot_moe(tp, x, cfg)[2]
+    assert torch.equal(xe, xe_o.reshape(xe.shape))
+    y, g = _grads(TF.moe_ffn, tp, x, cfg)
+    y_o, g_o = _grads(one_hot_moe, tp, x, cfg)
+    d = float((y - y_o).abs().max())
+    assert d <= ORACLE_OUT * float(y_o.abs().max()), (case, d)
+    assert sorted(g) == sorted(g_o)
+    _hold_grads(g, g_o, [n for n in g
+                         if n != "router" or cfg.moe.top_k > 1])
+    _, again = _grads(TF.moe_ffn, tp, x, cfg)
+    assert all(torch.equal(g[n], again[n]) for n in g)
+
+
+def test_moe_top1_router_gradient_matches_one_hot_oracle(monkeypatch):
+    """With top 1, the renormalized gate is v / v: its derivative is 0, so
+    in float32 the router's gradient through it is rounding noise of the
+    gate's gradient (each side's its own; 7.7e-2 of the leaf's max apart),
+    beside the aux loss's.  In float64 (both sides widened, as
+    ``test_torch_train.py`` widens the port) that noise is gone and every
+    leaf, the router's too, agrees within ORACLE_GRAD."""
+    import _moe_oracle
+    cfg, tp, x = _oracle_case("llama4_top1_shared")
+    monkeypatch.setattr(TF, "_F32", torch.float64)
+    monkeypatch.setattr(_moe_oracle, "F32", torch.float64)
+    tp = {k: ({a: b.double() for a, b in v.items()}
+              if isinstance(v, dict) else v.double()) for k, v in tp.items()}
+    x = torch.from_numpy(x).double()
+    _, g = _grads(TF.moe_ffn, tp, x, cfg)
+    _, g_o = _grads(one_hot_moe, tp, x, cfg)
+    assert g["router"].dtype == torch.float64
+    _hold_grads(g, g_o, g)
+
+
+@pytest.mark.parametrize("case", ORACLE_CASES)
+def test_moe_ffn_bf16_matches_one_hot_oracle(case):
+    """Bfloat16 inputs: the oracle's return is a bfloat16 GEMM (float32
+    sums, one rounding), the port's a float32 sum of the gates rounded to
+    bfloat16 times the slot rows, rounded once: within one bfloat16 step
+    of the oracle's value."""
+    cfg, tp, x = _oracle_case(case)
+    x = torch.from_numpy(x).to(torch.bfloat16)
+    _, _, _, _, routes, _ = TF.moe_route(tp, x, cfg)
+    xe = TF.MoEDispatch.apply(x.reshape(-1, cfg.d_model), routes)
+    y_o, _, xe_o = one_hot_moe(tp, x, cfg)
+    assert torch.equal(xe, xe_o.reshape(xe.shape))
+    y, _ = TF.moe_ffn(tp, x, cfg)
+    assert y.dtype == y_o.dtype == torch.bfloat16
+    y, y_o = y.float(), y_o.float()
+    step = BF16_STEP * y_o.abs() + ORACLE_OUT * float(y_o.abs().max())
+    assert bool(((y - y_o).abs() <= step).all()), case
+
+
+def test_moe_dispatch_and_combine_backward_is_their_derivative(monkeypatch):
+    """``gradcheck`` (float64) of the two index Functions on the capacity
+    case's tables, which hold empty slots and dropped choices: each
+    backward is the derivative of its forward, sentinels included (the
+    gates of dropped choices are drawn non-zero: the return ignores
+    them)."""
+    cfg, tp, x = _oracle_case("capacity_drop")
+    routes = TF.moe_route(tp, torch.from_numpy(x), cfg)[4]
+    n, k = routes.token_slot.shape
+    slots = routes.slot_token.numel()
+    assert bool((routes.token_slot == slots).any())
+    assert bool((routes.slot_token == n).any())
+    monkeypatch.setattr(TF, "_F32", torch.float64)
+    g = torch.Generator().manual_seed(0)
+
+    def draw(*shape):
+        return torch.rand(shape, generator=g, dtype=torch.float64,
+                          requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda a: TF.MoEDispatch.apply(a, routes), (draw(n, 4),))
+    assert torch.autograd.gradcheck(
+        lambda a, b: TF.MoECombine.apply(a, b, routes),
+        (draw(slots, 4), draw(n, k)))
+
+
+@pytest.mark.parametrize("case", ["dropless", "capacity_drop", "jamba"])
+def test_moe_ffn_counts_only_router_and_expert_products(case):
+    """2 G Tg d E (the router) + 3 x 2 E G C d f (the expert products): no
+    FLOP over the one-hot (token, slot) axes is left."""
+    cfg, tp, x = _oracle_case(case)
+    B, S, d = x.shape
+    e, k, f = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_expert
+    tg = min(TF.MOE_GROUP, B * S)
+    G, cap = B * S // tg, TF.moe_capacity(tg, k, e)
+    with FlopCounterMode(display=False) as counter:
+        TF.moe_ffn(tp, torch.from_numpy(x), cfg)
+    assert counter.get_total_flops() == (2 * G * tg * d * e
+                                         + 3 * 2 * e * G * cap * d * f)
 
 
 def test_top_k_ties_to_lower_index():
