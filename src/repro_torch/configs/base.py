@@ -1,7 +1,8 @@
 """Architecture configuration dataclasses (port of ``repro.configs.base``).
 
 The same fields, defaults and parameter counts as the reference, so a
-config built here and one built there describe the same model.
+config built here and one built there describe the same model;
+``PortArchConfig`` adds ``PortSwitches`` for the archs only the port has.
 ``param_count`` / ``active_param_count`` count every arch, as the
 closed-form decode mapping (``imc.mapping``) needs.  ``ShapeConfig`` /
 ``SHAPES`` are the reference's workload shapes (sequence, global batch,
@@ -44,6 +45,22 @@ class AttnConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PortSwitches:
+    """Switches of the archs only the port has (granite-4.0-h).  Their
+    defaults change nothing.  They are not fields of ``ArchConfig``, whose
+    ``port`` is this default as a class attribute: a reference arch's
+    config stays the reference's, field for field; ``PortArchConfig``
+    makes ``port`` a field."""
+    rope: bool = True                      # False: NoPE attention
+    score_scale: Optional[float] = None    # None: 1/sqrt(d_head)
+    embed_scale: Optional[float] = None    # None: sqrt(d_model)
+    residual_scale: float = 1.0            # each residual branch's factor
+    logits_scaling: float = 1.0            # the logits' divisor
+    shared_d_ff: Optional[int] = None      # shared expert's width (None: d_expert)
+    conv_bias: bool = False                # a bias on the Mamba conv
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                   # dense | moe | ssm | hybrid | encdec | vlm | audio
@@ -69,6 +86,12 @@ class ArchConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     opt_state_dtype: str = "float32"
+    port = PortSwitches()       # a class attribute: see ``PortSwitches``
+
+    @property
+    def shared_width(self) -> int:
+        """The shared expert's width."""
+        return self.port.shared_d_ff or self.moe.d_expert
 
     @property
     def n_pattern_repeats(self) -> int:
@@ -91,6 +114,8 @@ class ArchConfig:
                 c.d_model * (2 * d_in + 2 * c.ssm.d_state)  # in_proj(z,x,B,C)
                 + d_in * c.d_model                          # out_proj
                 + d_in * c.ssm.d_conv)                      # conv
+            if c.port.conv_bias:
+                per_mamba += d_in + 2 * c.ssm.d_state
         total = emb
         reps = self.n_pattern_repeats
         for mixer, ffn in c.pattern:
@@ -104,7 +129,7 @@ class ArchConfig:
                 assert c.moe is not None
                 e = c.moe.num_experts * 3 * c.d_model * c.moe.d_expert
                 if c.moe.shared_expert:
-                    e += 3 * c.d_model * c.moe.d_expert
+                    e += 3 * c.d_model * c.shared_width
                 e += c.d_model * c.moe.num_experts  # router
                 total += reps * e
         if c.n_encoder_layers:
@@ -123,6 +148,12 @@ class ArchConfig:
         n_moe_layers = sum(
             self.n_pattern_repeats for _, ffn in c.pattern if ffn == "moe")
         return self.param_count() - n_moe_layers * (full_moe - act_moe)
+
+
+@dataclasses.dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An arch only the port has: ``ArchConfig`` with ``port`` a field."""
+    port: PortSwitches = PortSwitches()
 
 
 @dataclasses.dataclass(frozen=True)

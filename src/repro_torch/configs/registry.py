@@ -2,9 +2,12 @@
 configs and the training microbatch counts (port of
 ``repro.configs.registry``).
 
-All ten archs of the reference are registered, as plain data: their
-parameter counts drive the closed-form decode mapping (``imc.mapping``),
-and ``models.model`` builds every one of them.
+All ten archs of the reference are registered in ``ARCHS``, as plain
+data: their parameter counts drive the closed-form decode mapping
+(``imc.mapping``), and ``models.model`` builds every one of them.
+``PORT_ARCHS`` holds the archs only the port has (granite-4.0-h-small and
+its one-period stage); ``get_arch`` and ``smoke_config`` answer from both
+tables, while ``ARCHS`` stays the reference's ten.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Dict
 from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig
 from repro_torch.configs import (
     gemma2_2b,
+    granite_4_0_h_small,
     internlm2_20b,
     jamba_1_5_large_398b,
     llama4_maverick_400b_a17b,
@@ -41,6 +45,11 @@ ARCHS: Dict[str, ArchConfig] = {
     )
 }
 
+PORT_ARCHS: Dict[str, ArchConfig] = {
+    c.name: c for c in (granite_4_0_h_small.CONFIG,
+                        granite_4_0_h_small.CONFIG_1PERIOD)
+}
+
 # Recommended grad-accumulation microbatch counts for train_4k at the
 # (data=16, model=16) production mesh (DESIGN.md §4).
 TRAIN_MICROBATCHES: Dict[str, int] = {
@@ -58,9 +67,12 @@ TRAIN_MICROBATCHES: Dict[str, int] = {
 
 
 def get_arch(name: str) -> ArchConfig:
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; choose from {sorted(ARCHS)}")
-    return ARCHS[name]
+    if name in ARCHS:
+        return ARCHS[name]
+    if name in PORT_ARCHS:
+        return PORT_ARCHS[name]
+    raise KeyError(f"unknown arch {name!r}; choose from "
+                   f"{sorted(ARCHS) + sorted(PORT_ARCHS)}")
 
 
 def smoke_config(name: str) -> ArchConfig:
@@ -91,6 +103,9 @@ def smoke_config(name: str) -> ArchConfig:
             interleave=c.moe.interleave,
             shared_expert=c.moe.shared_expert,
         )
+        if c.port.shared_d_ff is not None:
+            # the shared expert at a width of its own, as the arch has it
+            kw["port"] = dataclasses.replace(c.port, shared_d_ff=96)
     if c.ssm is not None:
         kw["ssm"] = SSMConfig(d_state=16, headdim=16, expand=2, d_conv=4,
                               chunk=8)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch._span import span
 from repro_torch.circuit.bitline import (BitlineParams, cell_conductance,
                                          column_ir_drop)
 from repro_torch.core.params import (AFMTJ_PARAMS, MTJ_PARAMS, DeviceParams,
@@ -138,12 +139,14 @@ def write_ber_masks(seed: int, ber: float, shape, device
     errors, drawn from a CPU ``torch.Generator`` seeded with (seed, salt), so
     both devices and both the device and the fake path see the same
     faulty cells.  The reference draws these with ``jax.random``; the tests
-    hand its draws over by replacing this function."""
-    gen = torch.Generator(device="cpu").manual_seed(
-        (int(seed) * 0x9E3779B1 + WRITE_BER_SALT) & 0xFFFFFFFF)
-    u_pos = torch.rand(tuple(shape), generator=gen)
-    u_neg = torch.rand(tuple(shape), generator=gen)
-    return (u_pos < ber).to(device), (u_neg < ber).to(device)
+    hand its draws over by replacing this function.  The draw runs inside
+    the profiler span ``repro.analog.fail_planes``."""
+    with span("repro.analog.fail_planes"):
+        gen = torch.Generator(device="cpu").manual_seed(
+            (int(seed) * 0x9E3779B1 + WRITE_BER_SALT) & 0xFFFFFFFF)
+        u_pos = torch.rand(tuple(shape), generator=gen)
+        u_neg = torch.rand(tuple(shape), generator=gen)
+        return (u_pos < ber).to(device), (u_neg < ber).to(device)
 
 
 def _scalar(x: float, device) -> torch.Tensor:

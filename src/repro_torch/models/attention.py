@@ -1,5 +1,6 @@
 """Grouped-query attention (port of ``repro.models.attention``): QKV
-projections (with bias, per-head q/k RMSNorm, RoPE), the
+projections (with bias, per-head q/k RMSNorm, RoPE unless ``port.rope`` is
+off), scores over sqrt(head dim) or times ``port.score_scale``, the
 materialized-score path and the chunked online-softmax path over a full
 sequence, bidirectional encoder attention, decoder cross-attention over
 precomputed encoder K/V, single-token decode against a preallocated KV
@@ -62,7 +63,7 @@ def _project_qkv(p, x, cfg: ArchConfig, positions, rope: bool = True):
     if cfg.attn.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if rope:
+    if rope and cfg.port.rope:
         q = apply_rope(q, positions, cfg.attn.rope_theta,
                        cfg.attn.mrope_sections)
         k = apply_rope(k, positions, cfg.attn.rope_theta,
@@ -91,7 +92,11 @@ def _mask_full(S: int, Skv: int, causal: bool, window: Optional[int],
     return torch.where(ok, zero, zero - 1e30)
 
 
-def _scale_scores(s: torch.Tensor, hd: int) -> torch.Tensor:
+def _scale_scores(s: torch.Tensor, hd: int, cfg: ArchConfig) -> torch.Tensor:
+    """Scores over sqrt(hd), or times ``cfg.port.score_scale`` where set
+    (granite's ``attention_multiplier``)."""
+    if cfg.port.score_scale is not None:
+        return s * cfg.port.score_scale
     return s / torch.tensor(math.sqrt(hd), dtype=_F32, device=s.device)
 
 
@@ -103,7 +108,7 @@ def full_attention(q, k, v, cfg: ArchConfig, causal: bool, window,
     g = h // kvh
     qg = q.reshape(B, S, kvh, g, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).to(_F32)
-    scores = _scale_scores(scores, hd)
+    scores = _scale_scores(scores, hd, cfg)
     scores = softcap(scores, cfg.attn.logit_softcap)
     scores = scores + _mask_full(S, k.shape[1], causal, window, offset,
                                  q.device)
@@ -137,7 +142,7 @@ def chunked_attention(q, k, v, cfg: ArchConfig, causal: bool, window,
         vci = v[:, ci * KV_CHUNK:(ci + 1) * KV_CHUNK]
         ki = ci * KV_CHUNK + torch.arange(KV_CHUNK, device=dev)[None, :]
         s = torch.einsum("bskgd,btkd->bkgst", qg, kci).to(_F32)
-        s = _scale_scores(s, hd)
+        s = _scale_scores(s, hd, cfg)
         s = softcap(s, cfg.attn.logit_softcap)
         ok = ki < Skv
         if causal:
@@ -225,7 +230,7 @@ def decode_self_attention(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     qg = q.reshape(B, 1, kvh, g, hd)
     s = torch.einsum("bskgd,btkd->bkgst", qg, ck).to(_F32)
     s = constrain(s, "decode_scores")
-    s = _scale_scores(s, hd)
+    s = _scale_scores(s, hd, cfg)
     s = softcap(s, cfg.attn.logit_softcap)
     ki = torch.arange(Skv, device=dev)[None, :]
     ok = ki <= pos

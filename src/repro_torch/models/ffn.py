@@ -39,16 +39,21 @@ def dense_ffn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 
 
 def dense_ffn(p, x, cfg: ArchConfig):
+    """SwiGLU / GeGLU; each weight is cast to its own product's input dtype
+    (under an analog hook that returns float32, ``g * u`` is float32
+    whatever ``x`` is)."""
     g = act_fn(linear(x, p["w_gate"].to(x.dtype), "w_gate"), cfg.act)
     u = linear(x, p["w_up"].to(x.dtype), "w_up")
-    return linear(g * u, p["w_down"].to(x.dtype), "w_down")
+    m = g * u
+    return linear(m, p["w_down"].to(m.dtype), "w_down")
 
 
 def moe_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     """Router (float32 whatever the parameter dtype), stacked experts
-    (E, d, f) / (E, f, d) and, with ``shared_expert``, a dense FFN of the
-    expert width.  The reference's ``REPRO_MOE_2D`` changes only sharding
-    axes, never shapes."""
+    (E, d, f) / (E, f, d) and, with ``shared_expert``, a dense FFN of
+    ``cfg.shared_width`` (the expert width unless the arch sets its own).
+    The reference's ``REPRO_MOE_2D`` changes only sharding axes, never
+    shapes."""
     assert cfg.moe is not None
     d, e, f = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_expert
     sp = {
@@ -58,10 +63,11 @@ def moe_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
         "w_down": ParamSpec((e, f, d), ("experts", "ffn", "embed")),
     }
     if cfg.moe.shared_expert:
+        fs = cfg.shared_width
         sp["shared"] = {
-            "w_gate": ParamSpec((d, f), ("embed", "ffn")),
-            "w_up": ParamSpec((d, f), ("embed", "ffn")),
-            "w_down": ParamSpec((f, d), ("ffn", "embed")),
+            "w_gate": ParamSpec((d, fs), ("embed", "ffn")),
+            "w_up": ParamSpec((d, fs), ("embed", "ffn")),
+            "w_down": ParamSpec((fs, d), ("ffn", "embed")),
         }
     return sp
 

@@ -180,6 +180,14 @@ def _maybe_post(p, name, y, cfg):
     return y
 
 
+def _residual(x, y, cfg: ArchConfig):
+    """``x + y``, the branch ``y`` scaled by ``cfg.port.residual_scale``
+    first where it is not 1 (granite's 0.22)."""
+    if cfg.port.residual_scale != 1.0:
+        y = y * cfg.port.residual_scale
+    return x + y
+
+
 def _ffn_tail(lp, x, cfg: ArchConfig, f: str, constrained: bool = True):
     """The block's FFN half (pre-norm, dense or MoE FFN, post-norm,
     residual, then the ``act_btd`` constraint unless ``constrained`` is
@@ -193,7 +201,7 @@ def _ffn_tail(lp, x, cfg: ArchConfig, f: str, constrained: bool = True):
         y, aux = ffn_mod.moe_ffn(lp["ffn"], h, cfg)
     else:
         y = ffn_mod.dense_ffn(lp["ffn"], h, cfg)
-    x = x + _maybe_post(lp, "post_ln2", y, cfg)
+    x = _residual(x, _maybe_post(lp, "post_ln2", y, cfg), cfg)
     return (constrain(x, "act_btd") if constrained else x), aux
 
 
@@ -215,7 +223,8 @@ def _run_block(p, x, cfg: ArchConfig, mixer: str, ffn: str, positions,
         y = attn.self_attention(p["attn"], h, cfg, positions, mixer)
     else:
         y = ssm_mod.mamba_forward(p["mamba"], h, cfg)
-    x = constrain(x + _maybe_post(p, "post_ln1", y, cfg), "act_btd")
+    x = constrain(_residual(x, _maybe_post(p, "post_ln1", y, cfg), cfg),
+                  "act_btd")
     x = _cross_tail(p, x, cfg, mem_kv)
     x, a = _ffn_tail(p, x, cfg, ffn)
     return x, aux if a is None else aux + a
@@ -247,12 +256,17 @@ def _scan_pattern(blocks, x, cfg: ArchConfig, positions, enc_out=None,
 def _embed(params, cfg: ArchConfig, tokens, frontend_embeds=None):
     """Token embedding in the compute dtype, scaled by sqrt(d_model) — the
     scale as a float32 square root rounded to the compute dtype, as the
-    reference's weakly typed ``jnp.sqrt(float(d))`` — with
-    ``frontend_embeds`` (B, F, d) concatenated before the tokens."""
+    reference's weakly typed ``jnp.sqrt(float(d))`` — or by
+    ``cfg.port.embed_scale`` where set, with ``frontend_embeds`` (B, F, d)
+    concatenated before the tokens."""
     dt = DTYPES[cfg.compute_dtype]
     e = params["embed"]
-    scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=_F32,
-                                    device=e.device)).to(dt)
+    if cfg.port.embed_scale is None:
+        scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=_F32,
+                                        device=e.device)).to(dt)
+    else:
+        scale = torch.tensor(float(cfg.port.embed_scale), dtype=_F32,
+                             device=e.device).to(dt)
     x = e[tokens].to(dt) * scale
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(dt), x], dim=1)
@@ -265,10 +279,19 @@ def _unembed_matrix(params, cfg: ArchConfig):
     return params["unembed"]
 
 
+def _scaled_logits(logits, cfg: ArchConfig):
+    """float32 logits divided by ``cfg.port.logits_scaling`` (where it is
+    not 1), then soft-capped."""
+    logits = logits.to(_F32)
+    if cfg.port.logits_scaling != 1.0:
+        logits = logits / cfg.port.logits_scaling
+    return softcap(logits, cfg.final_softcap)
+
+
 def _logits(params, cfg: ArchConfig, h):
     w = _unembed_matrix(params, cfg)
     logits = linear(h, w.to(h.dtype), "unembed")
-    return constrain(softcap(logits.to(_F32), cfg.final_softcap), "logits")
+    return constrain(_scaled_logits(logits, cfg), "logits")
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -318,10 +341,10 @@ def _cross_kv(params, cfg: ArchConfig, enc_out):
 # --------------------------------------------------------------------------
 # training forward (chunked CE loss; no (B, S, vocab) tensor kept)
 # --------------------------------------------------------------------------
-def _ce_chunk(h, labels, w, cap):
+def _ce_chunk(h, labels, w, cfg: ArchConfig):
     """[sum of token CE, valid tokens] of one chunk; labels -1 are
     padding."""
-    logits = softcap((h @ w).to(_F32), cap)
+    logits = _scaled_logits(h @ w, cfg)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, torch.clamp_min(labels, 0)[..., None])
     valid = (labels >= 0).to(_F32)
@@ -362,7 +385,7 @@ def forward_train(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     for c in range(n_chunks):
         totals = totals + _maybe_remat(
             _ce_chunk, True, x[:, c * L:(c + 1) * L],
-            labels[:, c * L:(c + 1) * L], w, cfg.final_softcap)
+            labels[:, c * L:(c + 1) * L], w, cfg)
     ce = totals[0] / torch.clamp_min(totals[1], 1.0)
     return ce + aux, {"ce": ce, "aux": aux, "tokens": totals[1]}
 
@@ -442,7 +465,8 @@ def serve_prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                 st = ssm_mod.mamba_state_after(lp["mamba"], h, cfg)
                 c["conv"][rep] = st["conv"]
                 c["ssm"][rep] = st["ssm"]
-            x = constrain(x + _maybe_post(lp, "post_ln1", y, cfg), "act_btd")
+            x = constrain(_residual(x, _maybe_post(lp, "post_ln1", y, cfg),
+                                    cfg), "act_btd")
             if cross is not None:
                 kc, vc = cross[f"pos{i}"]
                 x = _cross_tail(lp, x, cfg, (kc[rep], vc[rep]))
@@ -491,7 +515,7 @@ def serve_step(params, cfg: ArchConfig, cache: Dict[str, Any],
                 y, st = ssm_mod.mamba_decode_step(lp["mamba"], h, c, cfg)
                 c["conv"].copy_(st["conv"])
                 c["ssm"].copy_(st["ssm"])
-            x = x + _maybe_post(lp, "post_ln1", y, cfg)
+            x = _residual(x, _maybe_post(lp, "post_ln1", y, cfg), cfg)
             if "cross" in rc:
                 x = _cross_tail(lp, x, cfg, rc["cross"][f"pos{i}"])
             x, _ = _ffn_tail(lp, x, cfg, f, constrained=False)

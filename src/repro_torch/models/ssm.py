@@ -7,8 +7,9 @@ O(1) recurrence on the (H, P, N) state.
 
 ngroups = 1 (B/C shared across heads), a depthwise causal conv over the
 [x, B, C] bundle as K shifted adds (not ``F.conv1d``, which would go to
-cuDNN and its TF32 default), and a gated RMSNorm before the output
-projection.  The four projections are plain ``@``, as in the reference:
+cuDNN and its TF32 default) plus, with ``port.conv_bias``, its bias, and a
+gated RMSNorm before the output projection.  Each mixer call runs inside
+the profiler span ``repro.mamba``.  The four projections are plain ``@``, as in the reference:
 they do not pass through the ``linear`` hook, so the analog path leaves
 them exact.
 """
@@ -18,6 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch._span import spanned
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import ParamSpec, rms_norm
 
@@ -35,7 +37,7 @@ def mamba_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     d_in, H, P, N, K = _dims(cfg)
     conv_ch = d_in + 2 * N
-    return {
+    sp = {
         "w_z": ParamSpec((d, d_in), ("embed", "ffn")),
         "w_xbc": ParamSpec((d, conv_ch), ("embed", "ffn")),
         "w_dt": ParamSpec((d, H), ("embed", "heads")),
@@ -46,6 +48,9 @@ def mamba_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
         "norm": ParamSpec((d_in,), ("ffn",), "zeros"),
         "w_out": ParamSpec((d_in, d), ("ffn", "embed")),
     }
+    if cfg.port.conv_bias:
+        sp["conv_b"] = ParamSpec((conv_ch,), ("ffn",), "zeros")
+    return sp
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -54,14 +59,18 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over the sequence axis as K shifted adds."""
+def _causal_conv(xbc: torch.Tensor, p) -> torch.Tensor:
+    """Depthwise causal conv over the sequence axis as K shifted adds, then
+    the bias where the block has one, in ``xbc``'s dtype."""
+    w = p["conv_w"].to(xbc.dtype)
     K = w.shape[0]
     L = xbc.shape[1]
     out = xbc * w[K - 1]
     for i in range(1, K):
         shifted = torch.nn.functional.pad(xbc, (0, 0, i, 0))[:, :L]
         out = out + shifted * w[K - 1 - i]
+    if "conv_b" in p:
+        out = out + p["conv_b"].to(xbc.dtype)
     return out
 
 
@@ -106,6 +115,7 @@ def _scan_states(chunk_state, chunk_decay):
     return torch.stack(before, dim=1), s
 
 
+@spanned("repro.mamba")
 def mamba_forward(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """(B, L, d) -> (B, L, d) via chunked SSD.  L may be any length: the
     sequence is zero-padded to a chunk multiple with dt masked to 0 on the
@@ -119,8 +129,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     nC = L // Q
 
     z = x @ p["w_z"].to(x.dtype)
-    xbc = _causal_conv(x @ p["w_xbc"].to(x.dtype), p["conv_w"].to(x.dtype))
-    xbc = torch.nn.functional.silu(xbc)
+    xbc = torch.nn.functional.silu(_causal_conv(x @ p["w_xbc"].to(x.dtype),
+                                                p))
     xs, Bs, Cs = torch.split(xbc, [d_in, N, N], dim=-1)          # (B,L,*)
     dt = _dt(p, x, L_real)                                       # (B,L,H)
     A = -torch.exp(p["a_log"].to(_F32))                          # (H,)
@@ -156,6 +166,7 @@ def mamba_forward(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return out[:, :L_real] if pad else out
 
 
+@spanned("repro.mamba")
 def mamba_state_after(p, x: torch.Tensor, cfg: ArchConfig
                       ) -> Dict[str, torch.Tensor]:
     """Final (conv, ssm) state after the sequence ``x`` (B, L, d): the
@@ -172,8 +183,7 @@ def mamba_state_after(p, x: torch.Tensor, cfg: ArchConfig
     L = L_real + pad
     nC = L // Q
     xbc = x @ p["w_xbc"].to(x.dtype)
-    xbc_c = torch.nn.functional.silu(_causal_conv(xbc,
-                                                  p["conv_w"].to(x.dtype)))
+    xbc_c = torch.nn.functional.silu(_causal_conv(xbc, p))
     xs, Bs, _ = torch.split(xbc_c, [d_in, N, N], dim=-1)
     dt = _dt(p, x, L_real)
     A = -torch.exp(p["a_log"].to(_F32))
@@ -195,6 +205,7 @@ def init_mamba_cache(cfg: ArchConfig, batch: int, dtype,
             "ssm": torch.zeros((batch, H, P, N), dtype=_F32, device=device)}
 
 
+@spanned("repro.mamba")
 def mamba_decode_step(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                       cfg: ArchConfig
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -206,6 +217,8 @@ def mamba_decode_step(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     xbc_new = x @ p["w_xbc"].to(x.dtype)                          # (B,1,C)
     window = torch.cat([cache["conv"], xbc_new], dim=1)           # (B,K,C)
     conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(x.dtype))
+    if "conv_b" in p:
+        conv_out = conv_out + p["conv_b"].to(x.dtype)
     xbc = torch.nn.functional.silu(conv_out)[:, None, :]          # (B,1,C)
     xs, Bs, Cs = torch.split(xbc, [d_in, N, N], dim=-1)
     dt = softplus((x @ p["w_dt"].to(x.dtype)).to(_F32)

@@ -150,10 +150,10 @@ def main() -> int:
 
     def ce_fwd():
         with torch.no_grad():
-            M._ce_chunk(h, lab, w, None)
+            M._ce_chunk(h, lab, w, cfg)
 
     def ce_both():
-        out = M._ce_chunk(h, lab, w, None)
+        out = M._ce_chunk(h, lab, w, cfg)
         torch.autograd.grad(out[0], [h, w])
 
     grads = [torch.ones_like(p) for p in tree_leaves(params)]
