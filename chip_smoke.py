@@ -477,6 +477,11 @@ WRITE_OPS_PER_LANE_STEP = {2: (545, 33), 1: (279, 17)}
 # current than the forward write, and -1 V does not switch within 3,000
 # steps)
 QUICKSTART_VOLTS = (0.5, 0.8, 1.0, 1.2)
+# the plain write of a hold runs its loop body captured once in a CUDA graph
+# and replayed (the same kernels on the same inputs, without the eager
+# loop's ~2-3 ms of host dispatch a step); its first PLAIN_EAGER_STEPS
+# steps are held bit for bit against the eager loop itself
+PLAIN_EAGER_STEPS = 1001
 WRITE_CASES = [
     ("afmtj", (1.0,), 16000, 0.05e-12, True, "phase 2 / quickstart 1 V"),
     ("mtj", (1.0,), 40000, 0.1e-12, True, "phase 2"),
@@ -823,6 +828,43 @@ def write_bound_ms(lanes: int, steps: int, nsub: int) -> tuple:
     return bound_ms(lanes * steps, nsub, WRITE_OPS_PER_LANE_STEP)
 
 
+def graphed_steps(torch, step, state: tuple, n: int) -> tuple:
+    """``state = step(state)`` ``n`` times: the first step eager (it caches
+    the step's constants on the card), then the step captured once in a
+    CUDA graph that copies its result back into its input, replayed
+    ``n - 1`` times.  Every replay launches the kernels the eager step
+    launches, on the same values."""
+    if n == 0:
+        return state
+    state = tuple(t.clone() for t in step(state))
+    if n == 1:
+        return state
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(state)                 # warm on a side stream, as capture wants
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for dst, src in zip(state, step(state)):
+            dst.copy_(src)
+    for _ in range(n - 1):
+        graph.replay()
+    out = tuple(t.clone() for t in state)
+    del graph
+    return out
+
+
+def plain_write(torch, m0, v, p, dt, n: int, down: bool, gs) -> tuple:
+    """``ref.ref_llg_write``'s result, its loop body replayed in a CUDA
+    graph (``graphed_steps``)."""
+    from repro_torch.kernels import ref
+
+    step, state = ref.llg_write_stepper(m0, v, p, dt, down, gs)
+    m, _, t_sw, sw, en = graphed_steps(torch, step, state, n)
+    return m, t_sw, sw, en
+
+
 def phase2b(torch, dev, write_census) -> list:
     """The single-junction write kernel against its plain version on the
     card, bit-identical, at ``WRITE_CASES``: each timed beside the eager
@@ -837,16 +879,24 @@ def hold_write(torch, dev, write_census, kind, volts, n, dt, down, what,
                sample=None) -> dict:
     """One write launch held bit-identical against ``ref_llg_write`` over
     its whole horizon (with a ``DeviceSample``: its parameters and
-    conductance factor) and timed beside the eager plain version, its
-    operations bound and issue floor."""
+    conductance factor; the plain loop body replayed in a CUDA graph,
+    itself held bit-identical to the eager loop over the first
+    ``PLAIN_EAGER_STEPS`` steps) and timed beside the graphed plain
+    version, its operations bound and issue floor."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.llg_write import llg_write_kernel
 
     p, m0, v, gs = write_inputs(torch, dev, kind, volts, down, sample)
     llg_write_kernel(m0, v, p, dt, n, down, gs)      # warm
     got, ms = cuda_ms(lambda: llg_write_kernel(m0, v, p, dt, n, down, gs))
-    want, plain_ms = cuda_ms(lambda: ref.ref_llg_write(m0, v, p, dt, n, down,
-                                                       gs))
+    lead = min(n, PLAIN_EAGER_STEPS)
+    eager = ref.ref_llg_write(m0, v, p, dt, lead, down, gs)
+    graphed = plain_write(torch, m0, v, p, dt, lead, down, gs)
+    if not all(torch.equal(a, b) for a, b in zip(eager, graphed)):
+        raise AssertionError(f"{kind} {volts}: the graph-replayed plain write "
+                             f"differs from the eager loop over {lead} steps")
+    want, plain_ms = cuda_ms(lambda: plain_write(torch, m0, v, p, dt, n, down,
+                                                 gs))
     same = all(torch.equal(a, b) for a, b in zip(got, want))
     err = max((a.float() - b.float()).abs().nan_to_num(0.0).max().item()
               for a, b in zip(got, want))
@@ -857,8 +907,9 @@ def hold_write(torch, dev, write_census, kind, volts, n, dt, down, what,
     per_step = write_census[nsub]["instructions_per_lane_step"]
     floor = 1e3 * per_step * len(volts) * n / H100_ISSUE_S
     log(f"  {tag}: kernel {ms:.3f} ms ({1e3 * ms / n:.3f} us per step), "
-        f"plain {plain_ms:.0f} ms ({1e3 * plain_ms / n:.0f} us per step);"
-        f" bit-identical {same}; switched {got[2].tolist()}; bound "
+        f"plain (graph-replayed step; eager over its first {lead} steps "
+        f"bit-identical) {plain_ms:.0f} ms ({1e3 * plain_ms / n:.0f} us per "
+        f"step); bit-identical {same}; switched {got[2].tolist()}; bound "
         f"{b_ms:.3e} ms ({unit}), issue floor {floor:.3e} ms ({per_step} "
         f"instructions per lane-step); one thread's chain: "
         f"{ms / n * 1e6 / per_step:.2f} ns per instruction")
@@ -1189,6 +1240,45 @@ def hold_close(out, plain, tag: str, rtol: float, atol: float,
     return d
 
 
+class SizingHeld:
+    """Stands in for ``model_analog.adc_aux_kernel`` while it is entered:
+    launches the sizing kernel and requires its aux plane to equal
+    ``ref.ref_adc_aux``'s on CPU copies of the same inputs (the real
+    statistics of each product), bit for bit; ``held`` counts the
+    products."""
+
+    def __init__(self, tag: str):
+        self.tag, self.held, self.first = tag, 0, None
+
+    def __enter__(self):
+        from repro_torch.imc import model_analog as ma
+
+        self.ma, self.real = ma, ma.adc_aux_kernel
+        ma.adc_aux_kernel = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ma.adc_aux_kernel = self.real
+
+    def __call__(self, att_p, att_n, cell, **kw):
+        import torch
+
+        from repro_torch.kernels import ref
+
+        aux = self.real(att_p, att_n, cell, **kw)
+        if self.first is None:
+            self.first = ((att_p, att_n, cell), kw)
+        host = {k: v.cpu() if torch.is_tensor(v) else v
+                for k, v in kw.items()}
+        plain = ref.ref_adc_aux(att_p.cpu(), att_n.cpu(),
+                                [c.cpu() for c in cell], **host)
+        if not torch.equal(aux.cpu(), plain):
+            raise AssertionError(f"adc_sizing {self.tag}: the aux plane "
+                                 f"differs from ref_adc_aux's")
+        self.held += 1
+        return aux
+
+
 def fake_operand_sets(x, w, bl, dev) -> dict:
     """{label: (operands, keyword arguments)} of B5 for ``x @ w`` as the fake
     path builds them (adc 8, TMR 5.0, IR drop, decode): "path", no FET and
@@ -1236,6 +1326,7 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
     from repro_torch.imc import analog_pipeline as ap
     from repro_torch.imc import model_analog as ma
     from repro_torch.kernels import ref
+    from repro_torch.kernels.adc_sizing import adc_aux_kernel
     from repro_torch.kernels.bitline_mac import bitline_mac_kernel
     from repro_torch.kernels.fake_analog import (ROW_DECODE, ROW_I_MAX,
                                                  _tile_g_diff,
@@ -1274,9 +1365,11 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
                                  f"{tag}: not exact")
 
     # B5 on the fake path's operands: the path's (no FET, no fail plane) and
-    # with the ss corner's FET round trip + write-BER fail plane
+    # with the ss corner's FET round trip + write-BER fail plane, each aux
+    # plane sized on the card and held against the plain sizing
     err5 = 0.0
-    fake_ops = fake_operand_sets(x, w, bl, dev)
+    with SizingHeld(tag) as sizing:
+        fake_ops = fake_operand_sets(x, w, bl, dev)
     for label, (ops, fk) in fake_ops.items():
         out = fake_analog_kernel(*ops, **fk)
         plain = ref.ref_fake_analog(*ops, **fk)
@@ -1291,8 +1384,10 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
     arr0 = ap.program_weights(w, "afmtj", cfg0, device=dev)
     v0, im0, _ = ap.kernel_operands(arr0, x)
     scal0 = ma._fake_scalars("afmtj", cfg0, bl, 1.0, im0, dev)
-    ops0 = ma.fake_operands(x, w, bl, scal0, apply_fet=False, use_fail=False,
-                            ir_drop=False, has_imax=True, decode=False)
+    with sizing:
+        ops0 = ma.fake_operands(x, w, bl, scal0, apply_fet=False,
+                                use_fail=False, ir_drop=False, has_imax=True,
+                                decode=False)
     raw5 = fake_analog_kernel(*ops0, adc_bits=8)
     raw3 = bitline_mac_kernel(v0, arr0.g_diff, 8, im0)
     if not torch.equal(raw5, raw3):
@@ -1300,8 +1395,10 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
                              f"bitline_mac's on the same g_diff")
     del xz, wz
     log(f"  {tag}: bitline_mac max|d| {err3:.3e}, xnor exact, fake_analog "
-        f"max|d| {err5:.3e}, raw currents bit-equal")
-    rec.update(bitline_mac_err=err3, fake_analog_err=err5)
+        f"max|d| {err5:.3e}, raw currents bit-equal; adc_sizing aux plane "
+        f"bit-equal to the plain sizing ({sizing.held} products)")
+    rec.update(bitline_mac_err=err3, fake_analog_err=err5,
+               adc_sizing_held=sizing.held)
     if not timed:
         return rec
 
@@ -1355,6 +1452,12 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
         library_ms=None, library_ms_device=None,
         bound_ms=b5_bound[0], bound_by=b5_bound[1],
         bound_ms_fet_fail=b5f_bound[0], bound_by_fet_fail=b5f_bound[1])
+    # the path's sizing launch: 2 N reads and 8 N writes of float32
+    sz_args, sz_kw = sizing.first
+    sz_bound = gemm_bound(0, 0, 0, 0, f4 * 10 * n)
+    rec["adc_sizing"] = dict(
+        **both("ms", lambda: adc_aux_kernel(*sz_args, **sz_kw)),
+        bound_ms=sz_bound[0], bound_by=sz_bound[1])
     # B5 against B3 adc 8 on the same operands (B3 on the g_diff that B5
     # replays, the path's uniform full scale), device time in turns
     g_p = _tile_g_diff(ops_p[1], ops_p[2], ops_p[3], apply_fet=False,
@@ -1395,6 +1498,9 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
         f"{r5['b5_turns_ms_device']:.4f} ms ({r5['b5_over_b3']:.4f}x; the "
         f"parent's B5 {PARENT_B5_OVER_B3.get(what, math.nan):.3f}x"
         f"{'' if r5['no_slower_than_parent'] else ', SLOWER'})")
+    r = rec["adc_sizing"]
+    log(f"    adc_sizing: kernel {r['ms']:.4f} ms (device {r['ms_device']:.4f})"
+        f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     r = rec["xnor_gemm"]
     log(f"    xnor_gemm bfloat16: kernel {r['ms_bf16']:.4f} ms (device "
         f"{r['ms_bf16_device']:.4f}), torch.matmul (bf16 out) "
@@ -1490,12 +1596,13 @@ def analog_path(torch, dev, arch: str, linears: int) -> dict:
     the fake surface (adc 4 / 6 / 8, TMR 5.0), the device mode twice
     through the programming cache, fake adc 8 and bnn.  The analog
     kernels' counters are set to 0 just before and read just after; fails
-    unless fake vs device gives KL < 1e-4 with token match 1.0, the second
-    device call is bit-identical, KL falls with adc bits, and every kernel
-    launched ``linears`` times per forward."""
+    unless fake and device logits are bit-identical (KL < 1e-4 with token
+    match 1.0 besides), the second device call is bit-identical, KL falls
+    with adc bits, every kernel launched ``linears`` times per forward and
+    the sizing kernel once per fake product."""
     from repro_torch.imc import model_analog as ma
     from repro_torch.imc.analog_pipeline import AnalogConfig
-    from repro_torch.kernels import analog_mac
+    from repro_torch.kernels import adc_sizing, analog_mac
     from repro_torch.kernels.bitline_mac import bitline_mac_kernel
     from repro_torch.kernels.fake_analog import fake_analog_kernel
     from repro_torch.kernels.xnor_gemm import xnor_gemm_kernel
@@ -1507,6 +1614,7 @@ def analog_path(torch, dev, arch: str, linears: int) -> dict:
     cache_dir = ROOT / "build" / "smoke-programming-cache"
     shutil.rmtree(cache_dir, ignore_errors=True)
     analog_mac.reset_counts(*kernels.values())
+    adc_sizing.reset_counts()
     walls = {}
 
     def timed(name, fn):
@@ -1536,6 +1644,7 @@ def analog_path(torch, dev, arch: str, linears: int) -> dict:
     bnn = timed("bnn", lambda: ma.model_accuracy(
         arch, AnalogConfig(), mode="bnn", _setup_state=state, **kw))
     launches = {name: kern.launches for name, kern in kernels.items()}
+    sizing_launches = adc_sizing.adc_aux_kernel.launches
     reduce_launches = {name: kern.reduce_launches
                        for name, kern in kernels.items()}
     launch_shapes = {name: dict(kern.launch_shapes)
@@ -1564,13 +1673,15 @@ def analog_path(torch, dev, arch: str, linears: int) -> dict:
     for name, sec in walls.items():
         log(f"  wall {name}: {sec:.2f} s")
     log(f"  launches: {launches}; of which split K (+1 reduce-pass launch "
-        f"each): {reduce_launches}")
+        f"each): {reduce_launches}; adc_sizing {sizing_launches}")
     kl = {r.adc_bits: r.kl for r in surf}
     for y in (y_dev, y_fake):
         if tuple(y.shape) != want or not torch.isfinite(y).all():
             raise AssertionError("analog logits not finite / wrong shape")
     if not (abs(kl_fd) < 1e-4 and match_fd == 1.0):
         raise AssertionError(f"fake vs device: KL {kl_fd}, match {match_fd}")
+    if not fake_is_device:
+        raise AssertionError(f"{arch}: fake and device logits differ")
     if not same:
         raise AssertionError("device mode through the programming cache is "
                              "not bit-identical")
@@ -1579,7 +1690,12 @@ def analog_path(torch, dev, arch: str, linears: int) -> dict:
     expect = {name: n * linears for name, n in FORWARDS.items()}
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
+    if sizing_launches != launches["fake_analog"]:
+        raise AssertionError(f"adc_sizing launches {sizing_launches}, "
+                             f"expected one per fake product "
+                             f"({launches['fake_analog']})")
     return dict(launches=launches, reduce_launches=reduce_launches,
+                sizing_launches=sizing_launches,
                 launch_shapes=launch_shapes, walls=walls, kl=kl, kl_device=kl_d,
                 match_device=match_d, kl_bnn=bnn.kl, kl_fake_vs_device=kl_fd,
                 fake_is_device=fake_is_device, cache_bytes=cache_bytes,
@@ -2858,8 +2974,6 @@ def phase9(torch, dev, shapes: list) -> dict:
         t = time.perf_counter()
         path = analog_path(torch, dev, arch, linears)
         walls[f"analog {arch}"] = time.perf_counter() - t
-        if not path["fake_is_device"]:
-            raise AssertionError(f"{arch}: fake and device logits differ")
         path["per_forward"] = per_forward(shapes, path)
         log_per_forward(path["per_forward"], "9b")
         paths[arch] = path
@@ -4757,6 +4871,7 @@ def phase13(torch, dev, smi: str, children: list, t_start: float) -> dict:
 
 
 def kernel_counts() -> dict:
+    from repro_torch.kernels.adc_sizing import adc_aux_kernel
     from repro_torch.kernels.bitline_mac import bitline_mac_kernel
     from repro_torch.kernels.fake_analog import fake_analog_kernel
     from repro_torch.kernels.llg_rk4 import llg_rk4_kernel
@@ -4765,7 +4880,7 @@ def kernel_counts() -> dict:
 
     return {w.__name__: w.launches for w in (
         llg_rk4_kernel, llg_write_kernel, bitline_mac_kernel,
-        xnor_gemm_kernel, fake_analog_kernel)}
+        xnor_gemm_kernel, fake_analog_kernel, adc_aux_kernel)}
 
 
 def phase10(torch, dev, smi: str) -> dict:
@@ -4827,7 +4942,7 @@ def run_phases(torch, t_start: float, children: list) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_build = build.build_many(("llg_rk4", "llg_write", "analog_mac",
-                                "fake_analog", "xnor_gemm"),
+                                "fake_analog", "xnor_gemm", "adc_sizing"),
                                {"llg_rk4": llg_rk4.BUILD_DEFINES})
     for name, sec in t_build.items():
         log(f"  nvcc build of {name}.cu: {sec:.1f} s" if sec else
@@ -5013,6 +5128,31 @@ def run_phases(torch, t_start: float, children: list) -> int:
                     sharded["bitline_reduce_launches"]}
                if name == "bitline_mac" else {}),
         })
+    held = analog_shapes + family_shapes
+    record["kernels"].append({
+        "name": "adc_sizing",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adc_sizing.cu",
+        # not a pl.pallas_call site: the reference sizes the full scale and
+        # the decode gain as traced scalars in its jitted forward
+        "replaces": "src/repro/imc/model_analog.py:167",
+        "launches": path["sizing_launches"],
+        "launches_phase9": {arch: fam["sizing_launches"] for arch, fam
+                            in families["paths"].items()},
+        # every sizing launch of phases 5a and 9a held bit for bit
+        # (products_held counts the timed shapes')
+        "max_abs_err": 0.0,
+        "products_held": sum(x["adc_sizing_held"] for x in held),
+        "ms": widest["adc_sizing"]["ms"],
+        "ms_device": widest["adc_sizing"]["ms_device"],
+        "bound_ms": widest["adc_sizing"]["bound_ms"],
+        "bound_by": widest["adc_sizing"]["bound_by"],
+        "library_ms": None,
+        "shape": "aux plane of 128 x 896 @ 896 x 151936 (unembed)",
+        "main_path_shapes": [dict(x["adc_sizing"], shape=x["shape"],
+                                  what=x["what"])
+                             for x in held if "adc_sizing" in x],
+    })
     w = write[2]                # the quickstart's voltages, AFMTJ
     record["kernels"].append({
         "name": "llg_write",
@@ -5048,7 +5188,7 @@ def run_phases(torch, t_start: float, children: list) -> int:
                         if k != "shapes"}
     record["model_path"] = {k: v for k, v in path.items()
                             if k not in ("launches", "reduce_launches",
-                                         "launch_shapes")}
+                                         "launch_shapes", "sizing_launches")}
     record["analog_ms_per_forward"] = per_fwd
     record["phase9"] = {
         "analog": {arch: {k: v for k, v in fam.items()

@@ -13,7 +13,8 @@ Signal chain, as in the reference:
   4. ADC — signed quantizer, full scale ``full_scale_sigmas`` column-current
      sigmas rounded to 2 significant digits through a string, as the
      reference does (it is part of the result); decode by one float64 gain
-     (``decode_gain``), shared with the fused fake path.
+     (``decode_gain``); both sized by ``kernels.adc_sizing``, shared with
+     the fused fake path.
 
 ``binary_matmul`` is the 1-bit path through ``kernels.xnor_gemm`` with
 per-column |w| and scalar |x| scales.
@@ -37,7 +38,6 @@ device).
 from __future__ import annotations
 
 import dataclasses
-import math
 import warnings
 from typing import Optional, Tuple
 
@@ -52,6 +52,7 @@ from repro_torch.core.params import (AFMTJ_PARAMS, MTJ_PARAMS, DeviceParams,
                                      VariationSpec)
 from repro_torch.imc import faults as hard_faults
 from repro_torch.imc.faults import FaultSpec, RepairPolicy
+from repro_torch.kernels.adc_sizing import adc_full_scale, decode_gain
 from repro_torch.kernels.bitline_mac import bitline_mac_kernel
 from repro_torch.kernels.xnor_gemm import binarize_acc, xnor_gemm_kernel
 
@@ -249,21 +250,6 @@ def program_weights(
     return ProgrammedArray(g_diff=g_diff, w_scale=w_scale, g_fs=g_fs,
                            att_mean=att_mean, g_rms=g_rms, dev=dp, bl=bl,
                            cfg=cfg)
-
-
-def adc_full_scale(v_rms: float, g_rms: float, k_rows: int,
-                   full_scale_sigmas: float) -> float:
-    """ADC full scale: ``full_scale_sigmas`` column-current sigmas (an
-    independence estimate, float64) rounded to 2 significant digits through
-    a string, as the reference's ``kernel_operands``."""
-    i_sigma = v_rms * g_rms * math.sqrt(k_rows)
-    return float(f"{max(full_scale_sigmas * i_sigma, 1e-30):.2g}")
-
-
-def decode_gain(x_scale: float, w_scale: float, v_read: float, g_fs: float,
-                att_mean: float) -> float:
-    """Gain from ADC output back to weight x activation units (float64)."""
-    return (x_scale * w_scale) / (v_read * g_fs * att_mean)
 
 
 def kernel_operands(arr: ProgrammedArray, x

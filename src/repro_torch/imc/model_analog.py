@@ -15,8 +15,9 @@ no analog path, as in the reference.  Three execution modes per linear:
   * ``fake``   — the fused fake-analog kernel (``kernels.fake_analog``):
                  programming replayed inside the product, the operand
                  preamble (scales, fail plane, IR rows) on tensors, the ADC
-                 full scale and decode gain sized on the host exactly as
-                 the device path sizes them (``fake_operands``);
+                 full scale and decode gain sized on the device
+                 (``kernels.adc_sizing``) exactly as the device path sizes
+                 them on the host (``fake_operands``);
   * ``device`` — ``program_weights`` + ``analog_matmul`` through the
                  bit-line kernel, behind the content-keyed programming
                  cache below;
@@ -53,10 +54,8 @@ from repro_torch.imc.analog_pipeline import (AnalogConfig, ProgrammedArray,
                                              effective_conductances,
                                              program_weights)
 from repro_torch.imc.faults import FaultSpec, RepairPolicy
-from repro_torch.kernels.fake_analog import (AUX_ROWS, ROW_ATT_NEG, ROW_ATT_POS,
-                                             ROW_DECODE, ROW_G_AP, ROW_G_FS,
-                                             ROW_G_SCALE, ROW_I_MAX,
-                                             ROW_R_ACCESS, fake_analog_kernel,
+from repro_torch.kernels.adc_sizing import adc_aux_kernel
+from repro_torch.kernels.fake_analog import (fake_analog_kernel,
                                              pos_neg_conductance)
 from repro_torch.models import model as model_mod
 from repro_torch.models.common import intercept_linears, rms_norm
@@ -69,6 +68,18 @@ _F32 = torch.float32
 # ---------------------------------------------------------------------------
 # fake-analog fast path (single projection)
 # ---------------------------------------------------------------------------
+def _abs_max(t: torch.Tensor) -> torch.Tensor:
+    """max |t| as a 0-dim float32 tensor on ``t``'s device (exact: a
+    maximum rounds nothing, so any reduction order gives it)."""
+    return torch.linalg.vector_norm(t, float("inf"))
+
+
+def _scale(t_max: torch.Tensor, one: torch.Tensor) -> torch.Tensor:
+    """The normalizing scale: ``t_max`` with 0 read as 1 (``one``, a 0-dim
+    float32 1 on the device: a Python 1.0 would cost a fill launch)."""
+    return torch.where(t_max == 0.0, one, t_max)
+
+
 def fake_operands(x, w, bl: BitlineParams, scal: Dict[str, Any], *,
                   apply_fet: bool, use_fail: bool, ir_drop: bool,
                   has_imax: bool, decode: bool, use_faults: bool = False,
@@ -78,23 +89,24 @@ def fake_operands(x, w, bl: BitlineParams, scal: Dict[str, Any], *,
 
     One deliberate difference: the reference keeps the ADC full scale and
     the decode gain as traced float32 scalars (``_round_2sig``), because its
-    forward is jitted.  The port runs eagerly, so it reduces the same
-    float32 statistics to host floats and sizes both exactly as the device
-    path does (``analog_pipeline.adc_full_scale`` / ``decode_gain``, float64):
-    the fake and device modes then agree bit for bit on the same inputs.
-    The float32 version differs by ulps, which 24 random layers of
-    qwen2-0.5b amplify to a logits KL of ~4e-3 between the modes (H100
-    measurement, PERF.md)."""
+    forward is jitted.  The port sizes both from the same float32
+    statistics in float64, exactly as the device path sizes them on the
+    host (``adc_sizing.adc_full_scale`` / ``decode_gain``): the fake
+    and device modes then agree bit for bit on the same inputs.  The
+    float32 version differs by ulps, which 24 random layers of qwen2-0.5b
+    amplify to a logits KL of ~4e-3 between the modes (H100 measurement,
+    PERF.md).  Every statistic stays a tensor on the operands' device and
+    ``kernels.adc_sizing`` sizes both scalars into the aux plane (on the
+    card a kernel), so the preamble reads nothing back to the host and
+    copies nothing onto the card."""
     x = x.to(_F32)
     w = w.to(_F32)
     dev = w.device
     k_rows, n_cols = w.shape
     g_ap, g_fs = scal["g_ap"], scal["g_fs"]
 
-    w_scale = float(torch.max(torch.abs(w)))
-    if w_scale == 0.0:
-        w_scale = 1.0
-    wn = w / ap._scalar(w_scale, dev)
+    w_max = _abs_max(w)
+    wn = w / _scale(w_max, scal["one"])
 
     if use_fail:
         # the same cells as program_weights' residual write errors
@@ -118,18 +130,18 @@ def fake_operands(x, w, bl: BitlineParams, scal: Dict[str, Any], *,
     tp, tn = pos_neg_conductance(wn, fail, g_ap, g_fs, scal["g_scale"],
                                  scal["r_access"], apply_fet=apply_fet,
                                  use_fail=use_fail or use_faults)
-    att_mean = 1.0
+    att_mean = None
     if ir_drop:
         att_p = column_ir_drop(torch.sum(tp, dim=0), bl)
         att_n = column_ir_drop(torch.sum(tn, dim=0), bl)
         if col_ok is None:
-            att_mean = float(0.5 * (torch.mean(att_p) + torch.mean(att_n)))
+            att_mean = 0.5 * (torch.mean(att_p) + torch.mean(att_n))
         else:
             # dead bit lines read zero; the decode gain calibrates over
             # live columns only (the device path's association)
-            live = ap._scalar(max(float(torch.sum(col_ok)), 1.0), dev)
-            att_mean = float(0.5 * (torch.sum(att_p * col_ok) / live
-                                    + torch.sum(att_n * col_ok) / live))
+            live = torch.clamp_min(torch.sum(col_ok), 1.0)
+            att_mean = 0.5 * (torch.sum(att_p * col_ok) / live
+                              + torch.sum(att_n * col_ok) / live)
             att_p = att_p * col_ok
             att_n = att_n * col_ok
     else:
@@ -137,32 +149,22 @@ def fake_operands(x, w, bl: BitlineParams, scal: Dict[str, Any], *,
         att_p = ones if col_ok is None else ones * col_ok
         att_n = att_p
 
-    x_scale = float(torch.max(torch.abs(x)))
-    if x_scale == 0.0:
-        x_scale = 1.0
-    v = (scal["v_read"] * x) / ap._scalar(x_scale, dev)
+    x_max = _abs_max(x)
+    v = (scal["v_read"] * x) / _scale(x_max, scal["one"])
 
-    if has_imax:
-        i_max = scal["i_max"]
-    else:
+    g_rms = v_rms = None
+    if not has_imax:
         g_diff = att_p[None, :] * tp - att_n[None, :] * tn
-        g_rms = float(torch.sqrt(torch.mean(g_diff * g_diff)))
-        v_rms = float(torch.sqrt(torch.mean(v * v)))
-        i_max = ap.adc_full_scale(v_rms, g_rms, k_rows, scal["fs_sigmas"])
-    dec = (ap.decode_gain(x_scale, w_scale, scal["v_read_host"],
-                          scal["g_fs_host"], att_mean) if decode else 1.0)
-
-    def full(val):
-        return torch.broadcast_to(torch.as_tensor(val, dtype=_F32,
-                                                  device=dev), (n_cols,))
-
-    rows = [None] * AUX_ROWS
-    rows[ROW_ATT_POS], rows[ROW_ATT_NEG] = att_p, att_n
-    rows[ROW_I_MAX], rows[ROW_DECODE] = full(i_max), full(dec)
-    rows[ROW_G_AP], rows[ROW_G_FS] = full(g_ap), full(g_fs)
-    rows[ROW_G_SCALE], rows[ROW_R_ACCESS] = (full(scal["g_scale"]),
-                                             full(scal["r_access"]))
-    return v, wn, fail, torch.stack(rows)
+        g_rms = torch.sqrt(torch.mean(g_diff * g_diff))
+        v_rms = torch.sqrt(torch.mean(v * v))
+    aux = adc_aux_kernel(
+        att_p, att_n,
+        (g_ap, g_fs, scal["g_scale"], scal["r_access"]),
+        w_max=w_max, x_max=x_max, att_mean=att_mean, g_rms=g_rms,
+        v_rms=v_rms, k_rows=k_rows, fs_sigmas=scal["fs_sigmas"],
+        v_read=scal["v_read_host"], g_fs=scal["g_fs_host"], decode=decode,
+        i_max=scal["i_max"] if has_imax else None)
+    return v, wn, fail, aux
 
 
 def _fake_mvm_body(x, w, bl: BitlineParams, scal: Dict[str, Any], *,
@@ -209,10 +211,10 @@ def _systematic_g_scale(cfg: AnalogConfig) -> Tuple[bool, float]:
 def _fake_scalars(kind: str, cfg: AnalogConfig, bl: BitlineParams,
                   g_scale: float, i_max: Optional[float], device
                   ) -> Dict[str, Any]:
-    """The scalar pack of the fake path: the cell constants as float32
-    tensors (the same roundings as ``program_weights``), the read-out
-    scalars as the device path's host floats, seeds and rates as Python
-    numbers."""
+    """The scalar pack of the fake path: the cell constants (and a 1 for the
+    zero-scale rule) as float32 tensors on ``device`` (the same roundings
+    as ``program_weights``), the read-out scalars as the device path's host
+    floats, seeds and rates as Python numbers."""
     dp = _device_for(kind, cfg)
     fs = cfg.faults
     g_p_eff, g_ap_eff = effective_conductances(dp, bl)
@@ -221,6 +223,7 @@ def _fake_scalars(kind: str, cfg: AnalogConfig, bl: BitlineParams,
         return torch.tensor(float(val), dtype=_F32, device=device)
 
     return {
+        "one": torch.ones((), dtype=_F32, device=device),
         "g_ap": f32(g_ap_eff),
         "g_fs": f32(g_p_eff - g_ap_eff),
         "g_fs_host": g_p_eff - g_ap_eff,

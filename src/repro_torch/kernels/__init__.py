@@ -22,6 +22,10 @@
   xnor_gemm
            — wrapper of the XNOR GEMM (B4), bf16 tensor cores in
              ``csrc/xnor_gemm.cu``
+  adc_sizing
+           — wrapper of the fake-analog operand sizing (the ADC full scale
+             and decode gain into B5's aux plane, on the card), in
+             ``csrc/adc_sizing.cu``
   analog_mac
            — ctypes bindings of the analog sources and their split-K rule
   ops      — public entry points and the (8, cells) SoA packing helpers

@@ -2,9 +2,9 @@
 bit-line MAC B3, a float32 SIMT mainloop), ``csrc/fake_analog.cu`` (the
 fake-analog MVM B5, the same mainloop fed by a producer warpgroup that
 replays the conductances) and ``csrc/xnor_gemm.cu`` (the XNOR GEMM B4,
-tensor cores) — the split-K rule they share, and the launch path of their
-wrappers.  Nothing is built or loaded until a wrapper launches on a CUDA
-tensor.
+tensor cores) — and of B5's operand sizing (``csrc/adc_sizing.cu``), the
+split-K rule the GEMMs share, and the launch path of their wrappers.
+Nothing is built or loaded until a wrapper launches on a CUDA tensor.
 
 Split-K.  A grid whose output tiles cannot fill the card's SMs cuts K into
 ``splits`` contiguous chunks of whole BK steps (``k_range`` in
@@ -37,6 +37,7 @@ from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 
 _ARGTYPES = {
     "analog_mac": {
@@ -53,6 +54,10 @@ _ARGTYPES = {
         "xnor_gemm_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P],
         "xnor_gemm_tile": [_I],
+    },
+    "adc_sizing": {
+        "adc_aux_launch": [_P] * 12 + [_I, _P, _I, _D, _D, _D, _D, _I, _I,
+                                        _D, _I, _P],
     },
 }
 

@@ -26,6 +26,8 @@ versions of the analog MAC kernels (``csrc/analog_mac.cu``,
 ``csrc/xnor_gemm.cu``, ``csrc/fake_analog.cu``), mirroring the
 reference's jnp oracles: one float32 matmul plus the shared epilogue
 helpers of ``bitline_mac`` / ``xnor_gemm`` / ``fake_analog``.
+``ref_adc_aux`` is that of the fake-analog operand sizing
+(``csrc/adc_sizing.cu``): host floats, sized as the device path sizes.
 """
 from __future__ import annotations
 
@@ -147,6 +149,51 @@ def ref_llg_rk4(
     return res if out is None else out.copy_(res)
 
 
+def llg_write_stepper(
+    m0: torch.Tensor,             # (lanes, n_sub, 3) f32 initial states
+    voltages: torch.Tensor,       # (lanes,) f32 drive voltages
+    p: DeviceParams,
+    dt: float,
+    down: bool = True,
+    g_scale: torch.Tensor | None = None,   # optional (lanes,) f32 factors
+) -> tuple:
+    """``(step, state)``: ``ref_llg_write``'s loop body and its initial
+    state ``(m, t, t_switch, switched, energy)``; ``step(state)`` returns
+    the state one RK4 step later.  Once a step has run, a step makes no
+    host-to-device copy (its constants are cached), so it can be captured
+    in a CUDA graph and replayed."""
+    from repro_torch.core.device import a_j_from_voltage
+
+    f32 = torch.float32
+    dev = m0.device
+    lanes = m0.shape[0]
+    v = voltages.to(f32)
+    v2 = v * v
+    dt_t = llg.const(dt, m0)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    t = torch.zeros((), dtype=f32, device=dev)
+    t_sw = torch.full((lanes,), float("inf"), dtype=f32, device=dev)
+    sw = torch.zeros((lanes,), dtype=torch.bool, device=dev)
+    en = torch.zeros((lanes,), dtype=f32, device=dev)
+    gs = (torch.ones((lanes,), dtype=f32, device=dev) if g_scale is None
+          else g_scale.to(f32).reshape(lanes))
+
+    def step(state: tuple) -> tuple:
+        m, t, t_sw, sw, en = state
+        a_j = a_j_from_voltage(v, m, p) * gs
+        m = rk4_step(lambda mm, tt: llg.llg_rhs(mm, p, a_j), m, 0.0, dt)
+        opz = llg.order_parameter_z(m)
+        crossed = opz < -0.9 if down else opz > 0.9
+        t_next = t + dt_t
+        t_sw = torch.where(crossed & ~sw, t_next, t_sw)
+        sw = sw | crossed
+        g = tmr.conductance(m, p) * gs
+        en = en + torch.where(sw, zero, v2 * g * dt_t)
+        return m, t_next, t_sw, sw, en
+
+    return step, (m0, t, t_sw, sw, en)
+
+
 def ref_llg_write(
     m0: torch.Tensor,             # (lanes, n_sub, 3) f32 initial states
     voltages: torch.Tensor,       # (lanes,) f32 drive voltages
@@ -166,33 +213,10 @@ def ref_llg_write(
     same).  Returns ``(m, t_switch, switched, energy)``: the final
     ``(lanes, n_sub, 3)`` state, ``(lanes,)`` float32 (inf where no crossing),
     bool and float32."""
-    from repro_torch.core.device import a_j_from_voltage
-
-    f32 = torch.float32
-    dev = m0.device
-    lanes = m0.shape[0]
-    v = voltages.to(f32)
-    v2 = v * v
-    dt_t = llg.const(dt, m0)
-    zero = torch.zeros((), dtype=f32, device=dev)
-    m = m0
-    t = torch.zeros((), dtype=f32, device=dev)
-    t_sw = torch.full((lanes,), float("inf"), dtype=f32, device=dev)
-    sw = torch.zeros((lanes,), dtype=torch.bool, device=dev)
-    en = torch.zeros((lanes,), dtype=f32, device=dev)
-    gs = (torch.ones((lanes,), dtype=f32, device=dev) if g_scale is None
-          else g_scale.to(f32).reshape(lanes))
+    step, state = llg_write_stepper(m0, voltages, p, dt, down, g_scale)
     for _ in range(int(n_steps)):
-        a_j = a_j_from_voltage(v, m, p) * gs
-        m = rk4_step(lambda mm, tt: llg.llg_rhs(mm, p, a_j), m, 0.0, dt)
-        opz = llg.order_parameter_z(m)
-        crossed = opz < -0.9 if down else opz > 0.9
-        t_next = t + dt_t
-        t_sw = torch.where(crossed & ~sw, t_next, t_sw)
-        sw = sw | crossed
-        g = tmr.conductance(m, p) * gs
-        en = en + torch.where(sw, zero, v2 * g * dt_t)
-        t = t_next
+        state = step(state)
+    m, _, t_sw, sw, en = state
     return m, t_sw, sw, en
 
 
@@ -220,6 +244,44 @@ def ref_fake_analog(v, wn, fail, aux, adc_bits: int = 0,
     i_max = aux[ROW_I_MAX:ROW_I_MAX + 1, :]
     return (adc_quantize(i_bl, adc_bits, i_max)
             * aux[ROW_DECODE:ROW_DECODE + 1, :])
+
+
+def ref_adc_aux(att_p, att_n, cell, *, w_max, x_max, att_mean, g_rms, v_rms,
+                k_rows: int, fs_sigmas: float, v_read: float, g_fs: float,
+                decode: bool, i_max):
+    """Plain version of the ADC sizing kernel (``kernels.adc_sizing``): the
+    statistics read to host floats, the full scale and the decode gain sized
+    on the host by ``adc_sizing.adc_full_scale`` / ``decode_gain`` (the
+    device path's own), and the aux plane stacked from full-length rows."""
+    from repro_torch.kernels.adc_sizing import adc_full_scale, decode_gain
+    from repro_torch.kernels.fake_analog import (AUX_ROWS, ROW_ATT_NEG,
+                                                 ROW_ATT_POS, ROW_DECODE,
+                                                 ROW_G_AP, ROW_G_FS,
+                                                 ROW_G_SCALE, ROW_I_MAX,
+                                                 ROW_R_ACCESS)
+
+    def scale(t):
+        x = float(t)
+        return 1.0 if x == 0.0 else x
+
+    if i_max is None:
+        i_max = adc_full_scale(float(v_rms), float(g_rms), k_rows, fs_sigmas)
+    dec = 1.0
+    if decode:
+        att = 1.0 if att_mean is None else float(att_mean)
+        dec = decode_gain(scale(x_max), scale(w_max), v_read, g_fs, att)
+    n = att_p.shape[0]
+
+    def full(val):
+        return torch.broadcast_to(torch.as_tensor(
+            val, dtype=torch.float32, device=att_p.device), (n,))
+
+    rows = [None] * AUX_ROWS
+    rows[ROW_ATT_POS], rows[ROW_ATT_NEG] = att_p, att_n
+    rows[ROW_I_MAX], rows[ROW_DECODE] = full(i_max), full(dec)
+    (rows[ROW_G_AP], rows[ROW_G_FS], rows[ROW_G_SCALE],
+     rows[ROW_R_ACCESS]) = (full(c) for c in cell)
+    return torch.stack(rows)
 
 
 def ref_xnor_gemm(a, w, binarize: bool = False, tie: int = 1):
