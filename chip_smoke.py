@@ -490,7 +490,6 @@ WRITE_CASES = [
     ("afmtj", (-2.0,), 3000, 0.05e-12, False, "reverse write")]
 H100_FP32_OPS_S = 67e12        # NVIDIA data sheet, H100 SXM, 700 W
 H100_SFU_OPS_S = 132 * 16 * 1.98e9   # 16 SFU lanes / SM / clock, boost clock
-H100_HBM_BYTES_S = 3.35e12     # NVIDIA data sheet, H100 SXM, HBM3
 H100_INT8_OPS_S = 1979e12      # NVIDIA data sheet, H100 SXM, int8 dense
 # thread-instructions per second: 132 SMs x 4 schedulers x 1 warp
 # instruction (32 threads) per clock, boost clock
@@ -1213,8 +1212,10 @@ def gemm_bound(m: int, k: int, n: int, extra_ops: int, n_bytes: int,
                ops_s: float = H100_FP32_OPS_S):
     """(least ms, 'operations' or 'bytes') for an (m, k) @ (k, n) product
     plus ``extra_ops`` operations at ``ops_s`` moving ``n_bytes``."""
+    from repro_torch.launch.roofline import HBM_BW
+
     t_ops = (2 * m * k * n + extra_ops) / ops_s
-    t_bytes = n_bytes / H100_HBM_BYTES_S
+    t_bytes = n_bytes / HBM_BW
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -1294,14 +1295,11 @@ def fake_operand_sets(x, w, bl, dev) -> dict:
             ("fet+fail", ap.AnalogConfig(
                 adc_bits=8, tmr=5.0, write_ber=1e-2, variation=VariationSpec(
                     corners=(PROCESS_CORNERS["ss"],))))):
-        apply_fet, g_scale = ma._systematic_g_scale(acfg)
-        use_fail = acfg.write_ber > 0.0
-        scal = ma._fake_scalars("afmtj", acfg, bl, g_scale, None, dev)
-        ops = ma.fake_operands(x, w, bl, scal, apply_fet=apply_fet,
-                               use_fail=use_fail, ir_drop=True,
-                               has_imax=False, decode=True)
-        sets[label] = (ops, dict(adc_bits=8, apply_fet=apply_fet,
-                                 use_fail=use_fail))
+        setup = ma.fake_setup("afmtj", acfg, dev, bl=bl)
+        sets[label] = (ma.fake_operands(x, w, setup, bl),
+                       dict(adc_bits=setup.adc_bits,
+                            apply_fet=setup.apply_fet,
+                            use_fail=setup.fail_plane))
     return sets
 
 
@@ -1383,11 +1381,9 @@ def hold_analog_at_shape(torch, dev, m: int, k: int, n: int, what: str,
     cfg0 = ap.AnalogConfig(adc_bits=8, tmr=5.0, ir_drop=False)
     arr0 = ap.program_weights(w, "afmtj", cfg0, device=dev)
     v0, im0, _ = ap.kernel_operands(arr0, x)
-    scal0 = ma._fake_scalars("afmtj", cfg0, bl, 1.0, im0, dev)
+    setup0 = ma.fake_setup("afmtj", cfg0, dev, bl=bl, i_max=im0, decode=False)
     with sizing:
-        ops0 = ma.fake_operands(x, w, bl, scal0, apply_fet=False,
-                                use_fail=False, ir_drop=False, has_imax=True,
-                                decode=False)
+        ops0 = ma.fake_operands(x, w, setup0, bl)
     raw5 = fake_analog_kernel(*ops0, adc_bits=8)
     raw3 = bitline_mac_kernel(v0, arr0.g_diff, 8, im0)
     if not torch.equal(raw5, raw3):
@@ -3011,8 +3007,6 @@ TRAIN_LR = 3e-3
 TRAIN_STEP0 = 100
 TRAIN_TOTAL = 10000
 TRAIN_STEPS = 8
-# NVIDIA's H100 SXM data sheet, dense bf16 tensor-core rate (no sparsity)
-H100_BF16_DENSE_FLOPS = 989e12
 # card against CPU on the depth-cut copy (float32 compute, TF32 off), one
 # step from shared parameters at step TRAIN_STEP0: loss, gradient norm, the
 # moments (max |d| over the leaf's largest |value|), and the updated
@@ -3067,6 +3061,7 @@ def phase10_full_width(torch, smi: str) -> dict:
     loss below the first."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import TRAIN_MICROBATCHES, get_arch
+    from repro_torch.launch.roofline import PEAK_FLOPS
     from repro_torch.launch.train import train
     from repro_torch.optim import AdamWConfig
 
@@ -3116,7 +3111,7 @@ def phase10_full_width(torch, smi: str) -> dict:
         ms_per_step=[r.ms for r in hist], first_step_ms=hist[0].ms,
         ms_mean=ms_mean, ms_min=min(ms), ms_max=max(ms),
         tokens_per_s=tokens / (ms_mean / 1e3), model_flops_per_step=flops,
-        bf16_peak_share=flops / (ms_mean / 1e3) / H100_BF16_DENSE_FLOPS,
+        bf16_peak_share=flops / (ms_mean / 1e3) / PEAK_FLOPS,
         max_memory_allocated=peak, allocated_before=before, wall_s=wall,
         card=smi)
     log(f"  [{smi}] loss {hist[0].loss:.4f} -> {hist[-1].loss:.4f}; grad "
@@ -4830,7 +4825,7 @@ def phase13_hold(torch, dev, smi: str, est: dict) -> dict:
         f" ms ({terms['dominant']}: compute {terms['t_compute'] * 1e3:.1f}, "
         f"memory {terms['t_memory'] * 1e3:.1f} ms) -> {100 * frac:.1f}% of "
         f"the bound reached; model FLOPs {model:.4e}, "
-        f"{100 * model / (ms_mean / 1e3) / H100_BF16_DENSE_FLOPS:.2f}% of "
+        f"{100 * model / (ms_mean / 1e3) / roofline.PEAK_FLOPS:.2f}% of "
         f"the dense bf16 peak")
     if abs(gap) > PEAK_RTOL:
         raise AssertionError(f"the estimate {est_peak} is {100 * gap:.1f}% "

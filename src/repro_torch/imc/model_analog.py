@@ -17,7 +17,8 @@ no analog path, as in the reference.  Three execution modes per linear:
                  preamble (scales, fail plane, IR rows) on tensors, the ADC
                  full scale and decode gain sized on the device
                  (``kernels.adc_sizing``) exactly as the device path sizes
-                 them on the host (``fake_operands``);
+                 them on the host (``fake_operands``); what a product needs
+                 of its configuration is decided once, by ``fake_setup``;
   * ``device`` — ``program_weights`` + ``analog_matmul`` through the
                  bit-line kernel, behind the content-keyed programming
                  cache below;
@@ -25,7 +26,8 @@ no analog path, as in the reference.  Three execution modes per linear:
 
 PyTorch runs eagerly, so the reference's ``jax.jit`` / ``lru_cache`` of
 executables has no counterpart: each linear is one kernel launch.  The
-forward is unrolled over layers, as in the reference.
+forward is ``models.model.forward_logits``, unrolled over layers as in
+the reference.
 
 Random draws: model init (``init_model_params``) and the write-BER masks
 (``analog_pipeline.write_ber_masks``) come from ``torch.Generator``s; the
@@ -58,7 +60,7 @@ from repro_torch.kernels.adc_sizing import adc_aux_kernel
 from repro_torch.kernels.fake_analog import (fake_analog_kernel,
                                              pos_neg_conductance)
 from repro_torch.models import model as model_mod
-from repro_torch.models.common import intercept_linears, rms_norm
+from repro_torch.models.common import intercept_linears
 
 # bumped when the programming chain changes numerically
 PROGRAMMING_VERSION = 1
@@ -80,10 +82,88 @@ def _scale(t_max: torch.Tensor, one: torch.Tensor) -> torch.Tensor:
     return torch.where(t_max == 0.0, one, t_max)
 
 
-def fake_operands(x, w, bl: BitlineParams, scal: Dict[str, Any], *,
-                  apply_fet: bool, use_fail: bool, ir_drop: bool,
-                  has_imax: bool, decode: bool, use_faults: bool = False,
-                  repair: Optional[RepairPolicy] = None):
+@dataclasses.dataclass(frozen=True)
+class FakeSetup:
+    """What every fake-analog product of one (kind, ``AnalogConfig``)
+    needs, decided once by ``fake_setup``: the cell constants as the
+    device's float32 tensors, the sizing kernel's host floats, the read-out
+    and fault switches and the ADC's full scale and decode."""
+
+    # 0-dim float32 tensors on the device, program_weights' roundings
+    one: torch.Tensor                # the 1 of the zero-scale rule
+    g_ap: torch.Tensor
+    g_fs: torch.Tensor
+    g_scale: torch.Tensor            # 1 / r_factor of the systematic corner
+    r_access: torch.Tensor
+    v_read: torch.Tensor
+    # the host floats adc_aux_kernel sizes with (float64)
+    g_fs_host: float
+    v_read_host: float
+    fs_sigmas: float
+    adc_bits: int
+    ir_drop: bool
+    apply_fet: bool                  # a systematic process corner is set
+    ber: float                       # residual write errors drawn if > 0
+    seed: int
+    faults: Optional[FaultSpec]      # hard-fault planes drawn if set
+    repair: Optional[RepairPolicy]
+    fail_plane: bool                 # B5 reads a fail plane
+    i_max: Optional[float]           # None: sized from the operands
+    decode: bool                     # False: raw quantized currents
+
+
+def fake_setup(kind: str, cfg: AnalogConfig, device, *,
+               bl: Optional[BitlineParams] = None,
+               i_max: Optional[float] = None,
+               decode: bool = True) -> FakeSetup:
+    """The fake path's ``FakeSetup`` for ``kind`` under ``cfg`` on
+    ``device``.  The cell constants do not depend on the line length (the
+    FET series combination has no wire term), so one setup serves every
+    layer.  Systematic corners only: per-cell D2D spreads and conductance
+    drift need the device path."""
+    spec = _resolved_variation(cfg)
+    g_scale = 1.0
+    if spec is not None:
+        c = spec.corners[0]
+        if c.sigma_alpha or c.sigma_b_aniso or c.sigma_volume or c.sigma_r:
+            raise NotImplementedError(
+                "fake-analog path models systematic process corners only; "
+                "per-cell D2D spreads need the device path (mode='device')")
+        g_scale = 1.0 / c.r_factor
+    fs = cfg.faults
+    if fs is not None and fs.drift_sigma > 0.0:
+        raise NotImplementedError(
+            "fake-analog path models hard fault codes only; conductance "
+            "drift draws per-cell factors — use mode='device'")
+    bl = bl or BitlineParams()
+    g_p_eff, g_ap_eff = effective_conductances(_device_for(kind, cfg), bl)
+
+    def f32(val):
+        return torch.tensor(float(val), dtype=_F32, device=device)
+
+    return FakeSetup(
+        one=torch.ones((), dtype=_F32, device=device),
+        g_ap=f32(g_ap_eff),
+        g_fs=f32(g_p_eff - g_ap_eff),
+        g_scale=f32(g_scale),
+        r_access=f32(bl.r_access),
+        v_read=f32(cfg.v_read),
+        g_fs_host=g_p_eff - g_ap_eff,
+        v_read_host=float(cfg.v_read),
+        fs_sigmas=float(cfg.full_scale_sigmas),
+        adc_bits=cfg.adc_bits,
+        ir_drop=cfg.ir_drop,
+        apply_fet=spec is not None,
+        ber=float(cfg.write_ber),
+        seed=int(cfg.seed),
+        faults=fs,
+        repair=cfg.repair,
+        fail_plane=cfg.write_ber > 0.0 or fs is not None,
+        i_max=None if i_max is None else float(i_max),
+        decode=decode)
+
+
+def fake_operands(x, w, setup: FakeSetup, bl: BitlineParams):
     """(v, wn, fail, aux): the fused kernel's operands for ``x @ w``, the
     preamble of the reference's ``_fake_mvm_body`` step for step.
 
@@ -99,39 +179,34 @@ def fake_operands(x, w, bl: BitlineParams, scal: Dict[str, Any], *,
     ``kernels.adc_sizing`` sizes both scalars into the aux plane (on the
     card a kernel), so the preamble reads nothing back to the host and
     copies nothing onto the card."""
+    s = setup
     x = x.to(_F32)
     w = w.to(_F32)
     dev = w.device
     k_rows, n_cols = w.shape
-    g_ap, g_fs = scal["g_ap"], scal["g_fs"]
 
     w_max = _abs_max(w)
-    wn = w / _scale(w_max, scal["one"])
+    wn = w / _scale(w_max, s.one)
 
-    if use_fail:
+    if s.ber > 0.0:
         # the same cells as program_weights' residual write errors
-        f_pos, f_neg = ap.write_ber_masks(scal["seed"], scal["ber"],
-                                          wn.shape, dev)
+        f_pos, f_neg = ap.write_ber_masks(s.seed, s.ber, wn.shape, dev)
         fail = f_pos.to(_F32) + 2.0 * f_neg.to(_F32)
     else:
         fail = torch.zeros_like(wn)
 
     col_ok = None
-    if use_faults:
+    if s.faults is not None:
         # fault bits are disjoint from the write-ber bits: + is bitwise OR
-        code = hard_faults.fault_code_plane(
-            k_rows, n_cols, seed=scal["f_seed"], stuck_on=scal["f_on"],
-            stuck_off=scal["f_off"], dead_row=scal["f_drow"], device=dev)
-        col_ok = hard_faults.column_ok_plane(
-            n_cols, seed=scal["f_seed"], dead_col=scal["f_dcol"], device=dev)
-        code, col_ok = hard_faults.apply_repair(code, col_ok, repair)
+        code, col_ok = s.faults.planes(k_rows, n_cols, device=dev)
+        code, col_ok = hard_faults.apply_repair(code, col_ok, s.repair)
         fail = fail + code
 
-    tp, tn = pos_neg_conductance(wn, fail, g_ap, g_fs, scal["g_scale"],
-                                 scal["r_access"], apply_fet=apply_fet,
-                                 use_fail=use_fail or use_faults)
+    tp, tn = pos_neg_conductance(wn, fail, s.g_ap, s.g_fs, s.g_scale,
+                                 s.r_access, apply_fet=s.apply_fet,
+                                 use_fail=s.fail_plane)
     att_mean = None
-    if ir_drop:
+    if s.ir_drop:
         att_p = column_ir_drop(torch.sum(tp, dim=0), bl)
         att_n = column_ir_drop(torch.sum(tn, dim=0), bl)
         if col_ok is None:
@@ -150,97 +225,28 @@ def fake_operands(x, w, bl: BitlineParams, scal: Dict[str, Any], *,
         att_n = att_p
 
     x_max = _abs_max(x)
-    v = (scal["v_read"] * x) / _scale(x_max, scal["one"])
+    v = (s.v_read * x) / _scale(x_max, s.one)
 
     g_rms = v_rms = None
-    if not has_imax:
+    if s.i_max is None:
         g_diff = att_p[None, :] * tp - att_n[None, :] * tn
         g_rms = torch.sqrt(torch.mean(g_diff * g_diff))
         v_rms = torch.sqrt(torch.mean(v * v))
     aux = adc_aux_kernel(
-        att_p, att_n,
-        (g_ap, g_fs, scal["g_scale"], scal["r_access"]),
+        att_p, att_n, (s.g_ap, s.g_fs, s.g_scale, s.r_access),
         w_max=w_max, x_max=x_max, att_mean=att_mean, g_rms=g_rms,
-        v_rms=v_rms, k_rows=k_rows, fs_sigmas=scal["fs_sigmas"],
-        v_read=scal["v_read_host"], g_fs=scal["g_fs_host"], decode=decode,
-        i_max=scal["i_max"] if has_imax else None)
+        v_rms=v_rms, k_rows=k_rows, fs_sigmas=s.fs_sigmas,
+        v_read=s.v_read_host, g_fs=s.g_fs_host, decode=s.decode,
+        i_max=s.i_max)
     return v, wn, fail, aux
 
 
-def _fake_mvm_body(x, w, bl: BitlineParams, scal: Dict[str, Any], *,
-                   adc_bits: int, apply_fet: bool, use_fail: bool,
-                   ir_drop: bool, has_imax: bool, decode: bool,
-                   use_faults: bool = False,
-                   repair: Optional[RepairPolicy] = None):
+def _fake_mvm_body(x, w, setup: FakeSetup, bl: BitlineParams):
     """Fake-analog ``x @ w``: ``fake_operands`` + the fused kernel."""
-    v, wn, fail, aux = fake_operands(
-        x, w, bl, scal, apply_fet=apply_fet, use_fail=use_fail,
-        ir_drop=ir_drop, has_imax=has_imax, decode=decode,
-        use_faults=use_faults, repair=repair)
-    return fake_analog_kernel(v, wn, fail, aux, adc_bits=adc_bits,
-                              apply_fet=apply_fet,
-                              use_fail=use_fail or use_faults)
-
-
-def _fake_faults_mode(cfg: AnalogConfig) -> bool:
-    """Whether the fused path draws the fault planes: presence of a spec
-    switches it on; drift is device-path only."""
-    if cfg.faults is None:
-        return False
-    if cfg.faults.drift_sigma > 0.0:
-        raise NotImplementedError(
-            "fake-analog path models hard fault codes only; conductance "
-            "drift draws per-cell factors — use mode='device'")
-    return True
-
-
-def _systematic_g_scale(cfg: AnalogConfig) -> Tuple[bool, float]:
-    """(apply_fet, 1/r_factor) for the fake path — systematic corners only;
-    per-cell D2D spreads need the device path."""
-    spec = _resolved_variation(cfg)
-    if spec is None:
-        return False, 1.0
-    c = spec.corners[0]
-    if c.sigma_alpha or c.sigma_b_aniso or c.sigma_volume or c.sigma_r:
-        raise NotImplementedError(
-            "fake-analog path models systematic process corners only; "
-            "per-cell D2D spreads need the device path (mode='device')")
-    return True, 1.0 / c.r_factor
-
-
-def _fake_scalars(kind: str, cfg: AnalogConfig, bl: BitlineParams,
-                  g_scale: float, i_max: Optional[float], device
-                  ) -> Dict[str, Any]:
-    """The scalar pack of the fake path: the cell constants (and a 1 for the
-    zero-scale rule) as float32 tensors on ``device`` (the same roundings
-    as ``program_weights``), the read-out scalars as the device path's host
-    floats, seeds and rates as Python numbers."""
-    dp = _device_for(kind, cfg)
-    fs = cfg.faults
-    g_p_eff, g_ap_eff = effective_conductances(dp, bl)
-
-    def f32(val):
-        return torch.tensor(float(val), dtype=_F32, device=device)
-
-    return {
-        "one": torch.ones((), dtype=_F32, device=device),
-        "g_ap": f32(g_ap_eff),
-        "g_fs": f32(g_p_eff - g_ap_eff),
-        "g_fs_host": g_p_eff - g_ap_eff,
-        "g_scale": f32(g_scale),
-        "r_access": f32(bl.r_access),
-        "v_read": f32(cfg.v_read),
-        "v_read_host": float(cfg.v_read),
-        "fs_sigmas": float(cfg.full_scale_sigmas),
-        "ber": float(cfg.write_ber),
-        "seed": int(cfg.seed),
-        "i_max": None if i_max is None else float(i_max),
-        "f_seed": 0 if fs is None else fs.seed & 0xFFFFFFFF,
-        "f_on": 0.0 if fs is None else fs.stuck_on_rate,
-        "f_off": 0.0 if fs is None else fs.stuck_off_effective,
-        "f_drow": 0.0 if fs is None else fs.dead_row_rate,
-        "f_dcol": 0.0 if fs is None else fs.dead_col_rate,
-    }
+    v, wn, fail, aux = fake_operands(x, w, setup, bl)
+    return fake_analog_kernel(v, wn, fail, aux, adc_bits=setup.adc_bits,
+                              apply_fet=setup.apply_fet,
+                              use_fail=setup.fail_plane)
 
 
 def fake_analog_matmul(
@@ -261,13 +267,8 @@ def fake_analog_matmul(
     assert w.dim() == 2 and x.dim() == 2 and x.shape[1] == w.shape[0], (
         tuple(x.shape), tuple(w.shape))
     bl = bl or BitlineParams(rows=w.shape[0])
-    apply_fet, g_scale = _systematic_g_scale(cfg)
-    scal = _fake_scalars(kind, cfg, bl, g_scale, i_max, dev)
-    return _fake_mvm_body(
-        x, w, bl, scal, adc_bits=cfg.adc_bits, apply_fet=apply_fet,
-        use_fail=cfg.write_ber > 0.0, ir_drop=cfg.ir_drop,
-        has_imax=i_max is not None, decode=decode,
-        use_faults=_fake_faults_mode(cfg), repair=cfg.repair)
+    setup = fake_setup(kind, cfg, dev, bl=bl, i_max=i_max, decode=decode)
+    return _fake_mvm_body(x, w, setup, bl)
 
 
 # ---------------------------------------------------------------------------
@@ -373,30 +374,17 @@ def program_weights_cached(
 
 
 # ---------------------------------------------------------------------------
-# unrolled model forward + interception hooks
+# model forward + interception hooks
 # ---------------------------------------------------------------------------
-def _forward_unrolled(params, cfg: ArchConfig, tokens: torch.Tensor):
-    """Full-sequence logits, layer by layer, for every decoder-only arch
-    (attention or Mamba mixers, dense, MoE or no FFN)."""
-    assert cfg.n_encoder_layers == 0, "analog routing covers decoder-only"
-    x = model_mod._embed(params, cfg, tokens)
-    B, S, _ = x.shape
-    positions = torch.broadcast_to(
-        torch.arange(S, device=x.device)[None], (B, S))
-    x, _ = model_mod._scan_pattern(params["blocks"], x, cfg, positions,
-                                   remat=False)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return model_mod._logits(params, cfg, x)
-
-
 def model_forward_logits(params, cfg: ArchConfig, tokens, hook=None):
-    """Unrolled forward; ``hook(x2d, w, tag)`` intercepts every linear
-    (None = the exact forward)."""
+    """``models.model.forward_logits``; ``hook(x2d, w, tag)`` intercepts
+    every linear (None = the exact forward)."""
+    assert cfg.n_encoder_layers == 0, "analog routing covers decoder-only"
     with torch.no_grad():
         if hook is None:
-            return _forward_unrolled(params, cfg, tokens)
+            return model_mod.forward_logits(params, cfg, tokens)
         with intercept_linears(hook):
-            return _forward_unrolled(params, cfg, tokens)
+            return model_mod.forward_logits(params, cfg, tokens)
 
 
 def analog_model_logits(
@@ -415,19 +403,11 @@ def analog_model_logits(
     params = model_mod.params_to(params, dev)
     tokens = torch.as_tensor(tokens).to(dev)
     if mode == "fake":
-        apply_fet, g_scale = _systematic_g_scale(acfg)
-        use_fail = acfg.write_ber > 0.0
-        use_faults = _fake_faults_mode(acfg)
-        # device constants do not depend on the line length (the FET
-        # series combination has no wire term): one pack for every layer
-        scal = _fake_scalars(kind, acfg, BitlineParams(), g_scale, None, dev)
+        setup = fake_setup(kind, acfg, dev)
 
         def hook(x2, w, tag):
-            return _fake_mvm_body(
-                x2, w, BitlineParams(rows=w.shape[0]), scal,
-                adc_bits=acfg.adc_bits, apply_fet=apply_fet,
-                use_fail=use_fail, ir_drop=acfg.ir_drop, has_imax=False,
-                decode=True, use_faults=use_faults, repair=acfg.repair)
+            return _fake_mvm_body(x2, w, setup,
+                                  BitlineParams(rows=w.shape[0]))
     elif mode == "bnn":
         def hook(x2, w, tag):
             return binary_matmul(x2, w, tie=tie, device=dev)

@@ -20,6 +20,9 @@ as ``jax.checkpoint`` of the reference's scan body), then the
 cross-entropy over ``LOSS_CHUNK``-long sequence chunks, each chunk's
 logits recomputed in the backward too, so no (B, S, vocab) tensor is kept.
 
+Logits: ``forward_logits``, decoder-only, no recompute (the analog
+accuracy surface's forward).
+
 Serving: ``init_cache`` / ``serve_prefill`` / ``serve_step``.  The cache
 holds per pattern position a preallocated KV cache ((n_repeats, B,
 max_seq, kv, hd)) or the Mamba conv / ssm state ((n_repeats, B, K-1, C) /
@@ -336,6 +339,20 @@ def _cross_kv(params, cfg: ArchConfig, enc_out):
     return {pos: (torch.stack([k for k, _ in lst]),
                   torch.stack([v for _, v in lst]))
             for pos, lst in kv.items()}
+
+
+# --------------------------------------------------------------------------
+# full-sequence logits (decoder-only)
+# --------------------------------------------------------------------------
+def forward_logits(params, cfg: ArchConfig, tokens):
+    """(B, S, vocab) logits of a decoder-only arch: embedding, the pattern
+    without recompute, final norm, unembed."""
+    x = _embed(params, cfg, tokens)
+    B, S, _ = x.shape
+    x, _ = _scan_pattern(params["blocks"], x, cfg, _positions(B, S, x.device),
+                         remat=False)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, cfg, x)
 
 
 # --------------------------------------------------------------------------

@@ -18,45 +18,47 @@ from repro_torch.kernels.fake_analog import (AUX_ROWS, ROW_ATT_NEG, ROW_ATT_POS,
 _F32 = torch.float32
 
 
-def host_fake_operands(x, w, bl, scal, *, apply_fet: bool, use_fail: bool,
-                       ir_drop: bool, has_imax: bool, decode: bool,
-                       use_faults: bool = False, repair=None):
-    """(v, wn, fail, aux) with every preamble scalar read to the host."""
+def host_fake_operands(x, w, setup, bl):
+    """(v, wn, fail, aux) with every preamble scalar read to the host;
+    ``setup`` is ``imc.model_analog.fake_setup``'s."""
+    s = setup
     x = x.to(_F32)
     w = w.to(_F32)
     dev = w.device
     k_rows, n_cols = w.shape
-    g_ap, g_fs = scal["g_ap"], scal["g_fs"]
+    g_ap, g_fs = s.g_ap, s.g_fs
 
     w_scale = float(torch.max(torch.abs(w)))
     if w_scale == 0.0:
         w_scale = 1.0
     wn = w / ap._scalar(w_scale, dev)
 
-    if use_fail:
+    if s.ber > 0.0:
         # the same cells as program_weights' residual write errors
-        f_pos, f_neg = ap.write_ber_masks(scal["seed"], scal["ber"],
-                                          wn.shape, dev)
+        f_pos, f_neg = ap.write_ber_masks(s.seed, s.ber, wn.shape, dev)
         fail = f_pos.to(_F32) + 2.0 * f_neg.to(_F32)
     else:
         fail = torch.zeros_like(wn)
 
     col_ok = None
-    if use_faults:
+    if s.faults is not None:
         # fault bits are disjoint from the write-ber bits: + is bitwise OR
+        fs = s.faults
         code = hard_faults.fault_code_plane(
-            k_rows, n_cols, seed=scal["f_seed"], stuck_on=scal["f_on"],
-            stuck_off=scal["f_off"], dead_row=scal["f_drow"], device=dev)
+            k_rows, n_cols, seed=fs.seed & 0xFFFFFFFF,
+            stuck_on=fs.stuck_on_rate, stuck_off=fs.stuck_off_effective,
+            dead_row=fs.dead_row_rate, device=dev)
         col_ok = hard_faults.column_ok_plane(
-            n_cols, seed=scal["f_seed"], dead_col=scal["f_dcol"], device=dev)
-        code, col_ok = hard_faults.apply_repair(code, col_ok, repair)
+            n_cols, seed=fs.seed & 0xFFFFFFFF, dead_col=fs.dead_col_rate,
+            device=dev)
+        code, col_ok = hard_faults.apply_repair(code, col_ok, s.repair)
         fail = fail + code
 
-    tp, tn = pos_neg_conductance(wn, fail, g_ap, g_fs, scal["g_scale"],
-                                 scal["r_access"], apply_fet=apply_fet,
-                                 use_fail=use_fail or use_faults)
+    tp, tn = pos_neg_conductance(wn, fail, g_ap, g_fs, s.g_scale,
+                                 s.r_access, apply_fet=s.apply_fet,
+                                 use_fail=s.fail_plane)
     att_mean = 1.0
-    if ir_drop:
+    if s.ir_drop:
         att_p = column_ir_drop(torch.sum(tp, dim=0), bl)
         att_n = column_ir_drop(torch.sum(tn, dim=0), bl)
         if col_ok is None:
@@ -77,17 +79,17 @@ def host_fake_operands(x, w, bl, scal, *, apply_fet: bool, use_fail: bool,
     x_scale = float(torch.max(torch.abs(x)))
     if x_scale == 0.0:
         x_scale = 1.0
-    v = (scal["v_read"] * x) / ap._scalar(x_scale, dev)
+    v = (s.v_read * x) / ap._scalar(x_scale, dev)
 
-    if has_imax:
-        i_max = scal["i_max"]
+    if s.i_max is not None:
+        i_max = s.i_max
     else:
         g_diff = att_p[None, :] * tp - att_n[None, :] * tn
         g_rms = float(torch.sqrt(torch.mean(g_diff * g_diff)))
         v_rms = float(torch.sqrt(torch.mean(v * v)))
-        i_max = ap.adc_full_scale(v_rms, g_rms, k_rows, scal["fs_sigmas"])
-    dec = (ap.decode_gain(x_scale, w_scale, scal["v_read_host"],
-                          scal["g_fs_host"], att_mean) if decode else 1.0)
+        i_max = ap.adc_full_scale(v_rms, g_rms, k_rows, s.fs_sigmas)
+    dec = (ap.decode_gain(x_scale, w_scale, s.v_read_host, s.g_fs_host,
+                          att_mean) if s.decode else 1.0)
 
     def full(val):
         return torch.broadcast_to(torch.as_tensor(val, dtype=_F32,
@@ -97,6 +99,5 @@ def host_fake_operands(x, w, bl, scal, *, apply_fet: bool, use_fail: bool,
     rows[ROW_ATT_POS], rows[ROW_ATT_NEG] = att_p, att_n
     rows[ROW_I_MAX], rows[ROW_DECODE] = full(i_max), full(dec)
     rows[ROW_G_AP], rows[ROW_G_FS] = full(g_ap), full(g_fs)
-    rows[ROW_G_SCALE], rows[ROW_R_ACCESS] = (full(scal["g_scale"]),
-                                             full(scal["r_access"]))
+    rows[ROW_G_SCALE], rows[ROW_R_ACCESS] = full(s.g_scale), full(s.r_access)
     return v, wn, fail, torch.stack(rows)

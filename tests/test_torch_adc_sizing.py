@@ -157,7 +157,7 @@ def test_fake_operands_equal_the_host_preamble(mode, operands, given):
     """(v, wn, fail, aux) bit for bit, with the full scale sized or given
     and the decode gain on or off; all-zero operands take the 0 -> 1
     scale."""
-    has_imax, decode = given
+    given_imax, decode = given
     acfg = MODES[mode]
     gen = torch.Generator().manual_seed(11)
     m, k, n = 5, 48, 40
@@ -167,17 +167,42 @@ def test_fake_operands_equal_the_host_preamble(mode, operands, given):
         x = torch.zeros_like(x)
     if operands == "zero_w":
         w = torch.zeros_like(w)
-    apply_fet, g_scale = ma._systematic_g_scale(acfg)
     bl = BitlineParams(rows=k)
-    scal = ma._fake_scalars("afmtj", acfg, bl, g_scale,
-                            2.5e-5 if has_imax else None, "cpu")
-    kw = dict(apply_fet=apply_fet, use_fail=acfg.write_ber > 0.0,
-              ir_drop=acfg.ir_drop, has_imax=has_imax, decode=decode,
-              use_faults=ma._fake_faults_mode(acfg), repair=acfg.repair)
-    got = ma.fake_operands(x, w, bl, scal, **kw)
-    want = host_fake_operands(x, w, bl, scal, **kw)
+    setup = ma.fake_setup("afmtj", acfg, "cpu", bl=bl,
+                          i_max=2.5e-5 if given_imax else None, decode=decode)
+    got = ma.fake_operands(x, w, setup, bl)
+    want = host_fake_operands(x, w, setup, bl)
     for name, a, b in zip(("v", "wn", "fail", "aux"), got, want):
         assert torch.equal(a, b), name
+
+
+# (B5 reads a fail plane, the FET round trip) per mode
+SETUP_SWITCHES = {"path": (False, False), "no_ir_drop": (False, False),
+                  "ss_write_ber": (True, True), "faults_repair": (True, False),
+                  "faults_no_ir_drop": (True, False)}
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_fake_setup_derives_the_switches(mode):
+    """A fail plane iff write errors or hard faults, the FET round trip iff
+    a corner, the read-out knobs carried over, the ADC's full scale and
+    decode passed through."""
+    acfg = MODES[mode]
+    for i_max, decode in ((None, True), (2.5e-5, False)):
+        s = ma.fake_setup("afmtj", acfg, "cpu", i_max=i_max, decode=decode)
+        assert (s.fail_plane, s.apply_fet) == SETUP_SWITCHES[mode]
+        assert s.fail_plane == (acfg.write_ber > 0.0
+                                or acfg.faults is not None)
+        assert s.apply_fet == (acfg.variation is not None)
+        assert (s.adc_bits, s.ir_drop, s.repair, s.faults) == (
+            acfg.adc_bits, acfg.ir_drop, acfg.repair, acfg.faults)
+        assert (s.ber, s.seed) == (acfg.write_ber, acfg.seed)
+        assert (s.i_max, s.decode) == (i_max, decode)
+        r_factor = (acfg.variation.corners[0].r_factor if s.apply_fet
+                    else 1.0)
+        assert torch.equal(s.g_scale, torch.tensor(1.0 / r_factor, dtype=F32))
+        for t in (s.one, s.g_ap, s.g_fs, s.g_scale, s.r_access, s.v_read):
+            assert t.dtype == F32 and t.dim() == 0
 
 
 def test_plain_sizing_launches_nothing():

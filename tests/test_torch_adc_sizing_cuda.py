@@ -142,17 +142,13 @@ def test_fake_body_makes_no_host_sync(point, dev):
     x = torch.randn(128, k, generator=gen, device=dev)
     w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
     acfg = _acfg(point)
-    apply_fet, g_scale = ma._systematic_g_scale(acfg)
-    scal = ma._fake_scalars("afmtj", acfg, BitlineParams(), g_scale, None,
-                            dev)
+    setup = ma.fake_setup("afmtj", acfg, dev)
     bl = BitlineParams(rows=k)
-    kw = dict(adc_bits=acfg.adc_bits, apply_fet=apply_fet, use_fail=False,
-              ir_drop=True, has_imax=False, decode=True)
-    first = ma._fake_mvm_body(x, w, bl, scal, **kw)
+    first = ma._fake_mvm_body(x, w, setup, bl)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        again = ma._fake_mvm_body(x, w, bl, scal, **kw)
+        again = ma._fake_mvm_body(x, w, setup, bl)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(first, again)
