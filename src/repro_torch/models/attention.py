@@ -2,9 +2,10 @@
 projections (with bias, per-head q/k RMSNorm, RoPE unless ``port.rope`` is
 off), scores over sqrt(head dim) or times ``port.score_scale``, the
 materialized-score path and the chunked online-softmax path over a full
-sequence, bidirectional encoder attention, decoder cross-attention over
-precomputed encoder K/V, single-token decode against a preallocated KV
-cache, and the output projection.
+sequence (only the (query block, key chunk) tiles its mask leaves live),
+bidirectional encoder attention, decoder cross-attention over precomputed
+encoder K/V, single-token decode against a preallocated KV cache, and the
+output projection.
 
 The arithmetic mirrors the reference's jnp step by step (einsums, float32
 scores, additive -1e30 mask, softmax cast back to the compute dtype), so
@@ -13,11 +14,13 @@ not call a fused attention operator.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch._span import span
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (ParamSpec, apply_rope, linear, rms_norm,
                                        softcap)
@@ -27,6 +30,8 @@ _F32 = torch.float32
 # above this query length the chunked (flash-style) path is used
 CHUNK_THRESHOLD = 2048
 KV_CHUNK = 1024
+# the profiler span, one a computed (query block, key chunk) tile
+TILE_SPAN = "repro.attn.tile"
 
 
 def attn_specs(cfg: ArchConfig, cross: bool = False) -> Dict[str, ParamSpec]:
@@ -92,12 +97,19 @@ def _mask_full(S: int, Skv: int, causal: bool, window: Optional[int],
     return torch.where(ok, zero, zero - 1e30)
 
 
-def _scale_scores(s: torch.Tensor, hd: int, cfg: ArchConfig) -> torch.Tensor:
+def _sqrt_hd(hd: int, device) -> torch.Tensor:
+    """sqrt(hd) as a 0-dim float32 tensor on ``device`` (a host copy)."""
+    return torch.tensor(math.sqrt(hd), dtype=_F32, device=device)
+
+
+def _scale_scores(s: torch.Tensor, hd: int, cfg: ArchConfig,
+                  div: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scores over sqrt(hd), or times ``cfg.port.score_scale`` where set
-    (granite's ``attention_multiplier``)."""
+    (granite's ``attention_multiplier``).  ``div``: sqrt(hd) from
+    ``_sqrt_hd``, built here where not given."""
     if cfg.port.score_scale is not None:
         return s * cfg.port.score_scale
-    return s / torch.tensor(math.sqrt(hd), dtype=_F32, device=s.device)
+    return s / (_sqrt_hd(hd, s.device) if div is None else div)
 
 
 def full_attention(q, k, v, cfg: ArchConfig, causal: bool, window,
@@ -117,48 +129,116 @@ def full_attention(q, k, v, cfg: ArchConfig, causal: bool, window,
     return o.reshape(B, S, h, hd)
 
 
+def tile_plan(S: int, Skv: int, offset: int, causal: bool,
+              window: Optional[int]) -> List[range]:
+    """For each ``KV_CHUNK``-long key chunk, the ``KV_CHUNK``-row query
+    blocks whose (query block, key chunk) tile has a live mask entry.  Row
+    r sits at r + ``offset`` in the kv timeline; keys at or past ``Skv`` are
+    padding.  Both bounds of the causal and window masks rise with the
+    query, so the blocks form one range, and its ends never fall from one
+    chunk to the next."""
+    n_blocks = (S + KV_CHUNK - 1) // KV_CHUNK
+    plan = []
+    for k0 in range(0, Skv, KV_CHUNK):
+        k1 = min(k0 + KV_CHUNK, Skv) - 1
+        live = [qb for qb in range(n_blocks)
+                if not (causal and k0 > min((qb + 1) * KV_CHUNK, S) - 1
+                        + offset)
+                and not (window is not None
+                         and k1 <= qb * KV_CHUNK + offset - window)]
+        plan.append(range(live[0], live[-1] + 1) if live else range(0))
+    return plan
+
+
+def _tile_spans(n: int) -> contextlib.ExitStack:
+    """``n`` nested ``TILE_SPAN`` spans, one a computed tile."""
+    stack = contextlib.ExitStack()
+    for _ in range(n):
+        stack.enter_context(span(TILE_SPAN))
+    return stack
+
+
 def chunked_attention(q, k, v, cfg: ArchConfig, causal: bool, window,
                       offset: int = 0):
     """Flash-style online softmax over ``KV_CHUNK``-long key chunks (no
-    S x Skv score matrix): the reference's scan body as a Python loop."""
+    S x Skv score matrix): the reference's scan body as a Python loop, each
+    chunk over the query rows of its ``tile_plan`` blocks only.
+
+    A query row outside a chunk's blocks has no unmasked key in it.
+    Computed, the chunk would leave the row's m, l and acc as they were
+    (alpha 1, exact zeros added) or, before the row's first unmasked key, be
+    wiped by that key's chunk (alpha 0), so every row with an unmasked key
+    gets the reference's values.  The running m, l and acc cover the rows
+    [r0, r1) of the blocks still to come: rows below a chunk's blocks are
+    final and leave, rows above join with the reference's initial values.
+    One sqrt(hd) divisor serves every chunk of a call; one
+    ``repro.attn.tile`` span a computed tile wraps each chunk's work."""
     B, S, h, hd = q.shape
     kvh = k.shape[2]
     Skv = k.shape[1]
     g = h // kvh
     dev = q.device
     qg = q.reshape(B, S, kvh, g, hd)
-    n_chunks = (Skv + KV_CHUNK - 1) // KV_CHUNK
-    pad = n_chunks * KV_CHUNK - Skv
+    plan = tile_plan(S, Skv, offset, causal, window)
+    pad = len(plan) * KV_CHUNK - Skv
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    qi = torch.arange(S, device=dev)[:, None] + offset
+    div = _sqrt_hd(hd, dev) if cfg.port.score_scale is None else None
     zero = torch.zeros((), dtype=_F32, device=dev)
-    m = torch.full((B, kvh, g, S), -1e30, dtype=_F32, device=dev)
-    l = torch.zeros((B, kvh, g, S), dtype=_F32, device=dev)
-    acc = torch.zeros((B, kvh, g, S, hd), dtype=_F32, device=dev)
-    for ci in range(n_chunks):
-        kci = k[:, ci * KV_CHUNK:(ci + 1) * KV_CHUNK]
-        vci = v[:, ci * KV_CHUNK:(ci + 1) * KV_CHUNK]
-        ki = ci * KV_CHUNK + torch.arange(KV_CHUNK, device=dev)[None, :]
-        s = torch.einsum("bskgd,btkd->bkgst", qg, kci).to(_F32)
-        s = _scale_scores(s, hd, cfg)
-        s = softcap(s, cfg.attn.logit_softcap)
-        ok = ki < Skv
-        if causal:
-            ok = ok & (ki <= qi)
-        if window is not None:
-            ok = ok & (ki > qi - window)
-        s = s + torch.where(ok, zero, zero - 1e30)[None, None, None, :, :]
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        alpha = torch.exp(m - m_new)
-        pexp = torch.exp(s - m_new[..., None])
-        l = l * alpha + torch.sum(pexp, dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bkgst,btkd->bkgsd", pexp.to(q.dtype), vci).to(_F32)
-        m = m_new
-    o = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, S, h, hd)
+
+    def grow(state, n):
+        """``state`` (m, l, acc) with ``n`` rows more, at the reference's
+        initial values."""
+        new = (torch.full((B, kvh, g, n), -1e30, dtype=_F32, device=dev),
+               torch.zeros((B, kvh, g, n), dtype=_F32, device=dev),
+               torch.zeros((B, kvh, g, n, hd), dtype=_F32, device=dev))
+        if state is None:
+            return new
+        return tuple(torch.cat([a, b], dim=3) for a, b in zip(state, new))
+
+    def finish(state):
+        _, l, acc = state
+        o = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+        return o.permute(0, 3, 1, 2, 4)
+
+    state, r0, r1 = None, 0, 0      # m, l, acc of the rows [r0, r1)
+    outs = []
+    for ci, blocks in enumerate(plan):
+        if not blocks:
+            continue
+        lo, hi = blocks.start * KV_CHUNK, min(blocks.stop * KV_CHUNK, S)
+        if hi > r1:
+            state, r1 = grow(state, hi - r1), hi
+        if lo > r0:
+            outs.append(finish([a[:, :, :, :lo - r0] for a in state]))
+            state, r0 = [a[:, :, :, lo - r0:] for a in state], lo
+        m, l, acc = state
+        with _tile_spans(len(blocks)):
+            kci = k[:, ci * KV_CHUNK:(ci + 1) * KV_CHUNK]
+            vci = v[:, ci * KV_CHUNK:(ci + 1) * KV_CHUNK]
+            qi = torch.arange(r0, r1, device=dev)[:, None] + offset
+            ki = ci * KV_CHUNK + torch.arange(KV_CHUNK, device=dev)[None, :]
+            s = torch.einsum("bskgd,btkd->bkgst", qg[:, r0:r1], kci).to(_F32)
+            s = _scale_scores(s, hd, cfg, div)
+            s = softcap(s, cfg.attn.logit_softcap)
+            ok = ki < Skv
+            if causal:
+                ok = ok & (ki <= qi)
+            if window is not None:
+                ok = ok & (ki > qi - window)
+            s = s + torch.where(ok, zero, zero - 1e30)[None, None, None, :, :]
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            alpha = torch.exp(m - m_new)
+            pexp = torch.exp(s - m_new[..., None])
+            l = l * alpha + torch.sum(pexp, dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgst,btkd->bkgsd", pexp.to(q.dtype), vci).to(_F32)
+        state = (m_new, l, acc)
+    if S > r1:      # rows that no chunk reaches: no unmasked key at all
+        state = grow(state, S - r1)
+    outs.append(finish(state))
+    return torch.cat(outs, dim=1).reshape(B, S, h, hd)
 
 
 def self_attention(p, x, cfg: ArchConfig, positions, mixer: str):

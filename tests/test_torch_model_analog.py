@@ -218,31 +218,55 @@ def test_mapping_model_surface(port_surface):
     assert r.kl == pytest.approx(ref.kl, rel=1e-6)
 
 
-def test_chunked_attention_matches_reference(monkeypatch):
+# (S, Skv, offset, causal, window, dtype) at a key chunk of 16
+CHUNKED_CASES = {
+    "causal": (40, 40, 0, True, None, "float32"),
+    "window_8": (40, 40, 0, True, 8, "float32"),
+    "padding": (37, 37, 0, True, None, "float32"),
+    "offset": (24, 40, 16, True, None, "float32"),
+    "window_narrow": (48, 48, 0, True, 5, "float32"),
+    "window_wide": (48, 48, 0, True, 24, "float32"),
+    "noncausal": (40, 40, 0, False, None, "float32"),
+    "noncausal_window": (48, 48, 0, False, 20, "float32"),
+    "bfloat16": (40, 40, 0, True, None, "bfloat16"),
+}
+# bf16 q/k/v: the port equals the reference bit for bit here (measured),
+# but ``full_attention`` softmaxes in one pass and rounds apart by one bf16
+# ulp (0.0156 at |o| in [2, 4))
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("case", list(CHUNKED_CASES))
+def test_chunked_attention_matches_reference(monkeypatch, case):
     """The flash-style path (not on the study's path at seq 64), with a
-    small key chunk on both sides, against the reference's."""
+    small key chunk on both sides, against the reference's and against the
+    materialized-score path."""
     import jax.numpy as jnp
 
+    S, Skv, offset, causal, window, dt = CHUNKED_CASES[case]
     monkeypatch.setattr(jattn, "KV_CHUNK", 16)
     monkeypatch.setattr(tattn, "KV_CHUNK", 16)
     cfg = registry.smoke_config("qwen2-0.5b")
     rng = np.random.default_rng(0)
-    q = rng.standard_normal((2, 40, 4, 16)).astype(np.float32)
-    k = rng.standard_normal((2, 40, 2, 16)).astype(np.float32)
-    v = rng.standard_normal((2, 40, 2, 16)).astype(np.float32)
+    q = rng.standard_normal((2, S, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, Skv, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, Skv, 2, 16)).astype(np.float32)
     jcfg = j_smoke_config("qwen2-0.5b")
-    for window in (None, 8):
-        oj = np.asarray(jattn.chunked_attention(
-            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jcfg,
-            causal=True, window=window))
-        ot = _np(tattn.chunked_attention(
-            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-            cfg, causal=True, window=window))
-        np.testing.assert_allclose(ot, oj, rtol=1e-5, atol=1e-5)
-        of = _np(tattn.full_attention(
-            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-            cfg, causal=True, window=window))
-        np.testing.assert_allclose(ot, of, rtol=1e-5, atol=1e-5)
+    jdt, tdt = getattr(jnp, dt), getattr(torch, dt)
+    oj = np.asarray(jattn.chunked_attention(
+        jnp.asarray(q).astype(jdt), jnp.asarray(k).astype(jdt),
+        jnp.asarray(v).astype(jdt), jcfg, causal=causal, window=window,
+        offset=offset).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    ot = tattn.chunked_attention(tq, tk, tv, cfg, causal=causal,
+                                 window=window, offset=offset)
+    assert ot.dtype == tdt
+    ot = _np(ot.float())
+    tol = TOL[dt]
+    np.testing.assert_allclose(ot, oj, rtol=tol, atol=tol)
+    of = _np(tattn.full_attention(tq, tk, tv, cfg, causal=causal,
+                                  window=window, offset=offset).float())
+    np.testing.assert_allclose(ot, of, rtol=tol, atol=tol)
 
 
 def test_param_tree_hash_and_programming_key(tmp_path):

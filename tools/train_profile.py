@@ -15,7 +15,8 @@ parameters and AdamW state, bfloat16 compute, the train step of
    kernels with the most device time;
 3. the step's parts run alone at its shapes, CUDA-event times: one
    layer's chunked self-attention forward and forward + backward (q (B /
-   microbatches, S, 14, 64), k / v (.., 2, 64)); the chunked
+   microbatches, S, 14, 64), k / v (.., 2, 64)), with the (query block,
+   key chunk) tiles it computes of all there are; the chunked
    cross-entropy's forward and forward + backward over one microbatch; the
    AdamW update of the whole tree.  Each is scaled by its count per step:
    a remat region runs its forward twice (once in the forward, once
@@ -112,8 +113,10 @@ def main() -> int:
         t0 = time.perf_counter()
         one_step()
         wall = (time.perf_counter() - t0) * 1e3
+    # the device's mirrors of the program's spans (``repro.*``) are no work
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("repro.")]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     print(f"profiled step: wall {wall:.1f} ms, device kernel time "
           f"{busy:.1f} ms, busy share {busy / wall:.3f}")
@@ -172,11 +175,16 @@ def main() -> int:
                                 cuda_ms(torch, ce_both), n_chunks),
     }
     step_ms = sum(walls) / len(walls)
+    plan = A.tile_plan(S, S, 0, True, None)
+    tiles = {"attention": f" ({sum(map(len, plan))} of "
+                          f"{len(plan) * len(plan)} tiles computed)"
+             if fn is A.chunked_attention else ""}
     for name, (f, fb, n) in parts.items():
         total = n * (f + fb)
-        print(f"{name}: forward {f:.2f} ms, forward + backward {fb:.2f} ms; "
-              f"x {n} per step (forward twice, backward once): {total:.1f} "
-              f"ms = {100 * total / step_ms:.1f}% of the step")
+        print(f"{name}{tiles.get(name, '')}: forward {f:.2f} ms, forward + "
+              f"backward {fb:.2f} ms; x {n} per step (forward twice, "
+              f"backward once): {total:.1f} ms = "
+              f"{100 * total / step_ms:.1f}% of the step")
     u = cuda_ms(torch, update)
     print(f"AdamW update: {u:.1f} ms = {100 * u / step_ms:.1f}% of the step")
     peak = torch.cuda.max_memory_allocated() / 2**30
